@@ -1,0 +1,127 @@
+"""Capacity plans and model configuration (own copy of pcgcv2_tpu/config.py).
+
+`BlockPlan` sizes the block capacity of every scale of the dense-block
+backend; `ModelConfig` holds the architecture knobs.  Only the inference
+parts are copied: training plans wait for the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Tuple
+
+# Mirrors ops.blocks.BS without importing torch at config time.
+_BS = int(os.environ.get("PCGC_BLOCK_SIZE", "16"))
+
+
+def _round_up(n: int, m: int) -> int:
+    return int(math.ceil(n / m)) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """Block capacities of the dense-block backend (ops/blocks.py).
+
+    res    : full-resolution coordinate bound (voxel coords in [0, res)).
+    nb     : block caps at strides (1, 2, 4, 8).
+    dec_nb : post-compaction block caps of the three decoder stages
+             (coarse -> fine: strides 4, 2, 1).  Defaults to 2x the
+             encoder caps.
+    up_factors / up_caps : pre-prune candidate caps per decoder stage,
+             either factor x the coarser cap or absolute.
+    """
+
+    res: int
+    nb: Tuple[int, int, int, int]
+    dec_nb: Tuple[int, int, int] = ()
+    up_factors: Tuple[int, int, int] = (8, 8, 8)
+    up_caps: Tuple[int, int, int] = ()
+
+    def __post_init__(self):
+        if not self.dec_nb:
+            object.__setattr__(
+                self, "dec_nb",
+                (2 * self.nb[2], 2 * self.nb[1], 2 * self.nb[0]),
+            )
+
+    @classmethod
+    def for_cloud(
+        cls,
+        n_points: int,
+        res: int,
+        blocks_per_point: float = (8 / _BS) ** 2 / 40,
+        round_to: int = 512,
+        slack: float = 1.3,
+    ) -> "BlockPlan":
+        """Density-prior plan for a frame of ~n_points voxels at `res`
+        (the codec's conservative retry tier)."""
+        nb0 = max(round_to, _round_up(
+            int(n_points * blocks_per_point * slack), round_to))
+        # per-stride occupied-block ratios of surface content at BS 16
+        ratios = (1.0, 0.28, 0.09, 0.035)
+
+        def cells(s):  # worst-case occupied blocks at scale s (batch 1)
+            g = max(1, -(-max(1, res >> s) // _BS))
+            return g ** 3 + 1
+
+        nb = tuple(
+            min(cells(s),
+                max(round_to, _round_up(int(nb0 * r), round_to)))
+            for s, r in enumerate(ratios)
+        )
+        dec_nb = tuple(
+            min(cells(i),
+                _round_up(int(1.3 * nb[i]) + 1, round_to)) for i in (2, 1, 0)
+        )
+        up_caps = tuple(
+            min(cells(i),
+                _round_up(int(1.35 * nb[i]) + 1, round_to)) for i in (2, 1, 0)
+        )
+        return cls(res=res, nb=nb, dec_nb=dec_nb, up_factors=(5, 4, 3),
+                   up_caps=up_caps)
+
+    @classmethod
+    def for_frame(
+        cls,
+        res: int,
+        blocks: Tuple[int, int, int, int],
+        slack: float = 1.2,
+        round_to: int = 512,
+    ) -> "BlockPlan":
+        """Exact-fit plan from measured occupied-block counts at strides
+        (1, 2, 4, 8).  A decoder stage's candidate blocks equal the finer
+        scale's ground-truth blocks, so the decode caps derive from the
+        same counts; `slack` covers top-k drift, and overflow is detected
+        at run time (BlockGrid.dropped)."""
+        def cells(s):  # worst-case occupied blocks at scale s (batch 1)
+            g = max(1, -(-max(1, res >> s) // _BS))
+            return g ** 3 + 1
+
+        def pad(s, n):
+            return min(cells(s), max(
+                round_to, _round_up(int(n * slack) + 1, round_to)))
+
+        nb = tuple(pad(s, b) for s, b in enumerate(blocks))
+        dec_nb = (nb[2], nb[1], nb[0])
+        return cls(res=res, nb=nb, dec_nb=dec_nb, up_factors=(8, 8, 8),
+                   up_caps=dec_nb)
+
+    def up_cap(self, stage: int) -> int:
+        """Pre-prune cap for decoder stage `stage` (0 = stride 8 -> 4)."""
+        if self.up_caps:
+            return self.up_caps[stage]
+        prev = self.nb[3] if stage == 0 else self.dec_nb[stage - 1]
+        return self.up_factors[stage] * prev
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture knobs (the shipped model's widths are the defaults)."""
+
+    enc_channels: Tuple[int, ...] = (1, 16, 32, 64, 32, 8)
+    dec_channels: Tuple[int, ...] = (8, 64, 32, 16)
+    blocks_per_scale: int = 3
+    entropy_filters: Tuple[int, ...] = (3, 3, 3)
+    entropy_init_scale: float = 8.0

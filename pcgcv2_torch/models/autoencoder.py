@@ -1,0 +1,104 @@
+"""Three-scale sparse autoencoder, inference branch (twin of
+pcgcv2_tpu/models/autoencoder.py).
+
+Encoder: per scale [3^3 conv -> 2x down-conv -> IRN blocks], channels
+(1,16,32,64,32,8); returns the bottleneck plus the two intermediate grids
+whose voxel counts are the decoder's top-k targets.
+
+Decoder: per stage [generative 2x up-conv -> 3^3 conv -> IRN blocks ->
+1-channel occupancy head -> top-k prune -> drop empty blocks], channels
+(8,64,32,16).  Capacities come from the BlockPlan passed at call time.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from pcgcv2_torch.config import BlockPlan
+from pcgcv2_torch.models.layers import (
+    BConv3,
+    BConvDown,
+    BGenUp,
+    BInceptionResNet,
+    relu,
+)
+from pcgcv2_torch.ops import blocks as B
+from pcgcv2_torch.ops.blocks import BlockGrid
+
+
+class Encoder(nn.Module):
+    def __init__(self, channels: Sequence[int] = (1, 16, 32, 64, 32, 8),
+                 blocks: int = 3):
+        super().__init__()
+        ch = tuple(channels)
+        self.blocks = blocks
+        for s in range(3):
+            # scale s reads the input (s = 0) or the previous IRN stack
+            ci = ch[0] if s == 0 else ch[s + 1]
+            setattr(self, f"conv{s}", BConv3(ci, ch[s + 1]))
+            setattr(self, f"down{s}", BConvDown(ch[s + 1], ch[s + 2]))
+            for i in range(blocks):
+                setattr(self, f"block{s}_{i}", BInceptionResNet(ch[s + 2]))
+        self.conv3 = BConv3(ch[4], ch[5])
+
+    def _scale(self, s: int, out: BlockGrid, plan: BlockPlan) -> BlockGrid:
+        """One encoder scale: 3^3 conv -> 2x down -> IRN stack."""
+        out = getattr(self, f"conv{s}")(out, B.neighbor_rows(out))
+        out = relu(getattr(self, f"down{s}")(relu(out), plan.nb[s + 1]))
+        nbrs = B.neighbor_rows(out)
+        for i in range(self.blocks):
+            out = getattr(self, f"block{s}_{i}")(out, nbrs)
+        return out
+
+    def forward(self, x: BlockGrid, plan: BlockPlan):
+        outs: List[BlockGrid] = []
+        out = x
+        for s in range(3):
+            out = self._scale(s, out, plan)
+            outs.append(out)
+        out2 = self.conv3(outs[2], B.neighbor_rows(outs[2]))
+        # coarse -> fine, like the reference's [out2, out1, out0]
+        return out2, outs[1], outs[0]
+
+
+class Decoder(nn.Module):
+    def __init__(self, channels: Sequence[int] = (8, 64, 32, 16),
+                 blocks: int = 3):
+        super().__init__()
+        ch = tuple(channels)
+        self.blocks = blocks
+        for s in range(3):
+            setattr(self, f"up{s}", BGenUp(ch[s], ch[s + 1]))
+            setattr(self, f"conv{s}", BConv3(ch[s + 1], ch[s + 1]))
+            for i in range(blocks):
+                setattr(self, f"block{s}_{i}", BInceptionResNet(ch[s + 1]))
+            setattr(self, f"conv{s}_cls", BConv3(ch[s + 1], 1))
+
+    def stage(self, s: int, bg: BlockGrid,
+              up_cap: int) -> Tuple[BlockGrid, BlockGrid]:
+        """One decoder stage: generative up-conv -> 3^3 conv -> IRN stack
+        -> occupancy head.  Returns (features, cls logits) on the pre-prune
+        candidate grid."""
+        out = relu(getattr(self, f"up{s}")(bg, up_cap))
+        nbrs = B.neighbor_rows(out)
+        out = relu(getattr(self, f"conv{s}")(out, nbrs))
+        for i in range(self.blocks):
+            out = getattr(self, f"block{s}_{i}")(out, nbrs)
+        cls = getattr(self, f"conv{s}_cls")(out, nbrs)
+        return out, cls
+
+    def forward(self, y: BlockGrid, nums_list: Sequence[torch.Tensor],
+                plan: BlockPlan):
+        """Returns (pre-prune cls-logit grids per stage, final pruned grid).
+        """
+        out = y
+        out_cls_list: List[BlockGrid] = []
+        for s in range(3):
+            out, cls = self.stage(s, out, plan.up_cap(s))
+            out_cls_list.append(cls)
+            keep = B.topk_mask(out, cls.feats[:, :, 0], nums_list[s])
+            out = B.compact(B.prune(out, keep), plan.dec_nb[s])
+        return out_cls_list, out

@@ -1,0 +1,56 @@
+"""PCCModel — encoder + entropy bottleneck + decoder, inference entry
+points (twin of pcgcv2_tpu/models/pcc.py).
+
+The module holds the weights only; block capacities come from the
+BlockPlan each call receives (the JAX module baked it in as a static
+attribute because jit needs static shapes).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from pcgcv2_torch.config import BlockPlan, ModelConfig
+from pcgcv2_torch.models.autoencoder import Decoder, Encoder
+from pcgcv2_torch.models.entropy import EntropyBottleneck
+from pcgcv2_torch.ops import blocks as B
+from pcgcv2_torch.ops.blocks import BlockGrid
+
+
+class PCCModel(nn.Module):
+    def __init__(self, config: ModelConfig = ModelConfig(),
+                 num_batches: int = 1):
+        super().__init__()
+        self.config = config
+        self.num_batches = num_batches
+        self.encoder = Encoder(config.enc_channels, config.blocks_per_scale)
+        self.decoder = Decoder(config.dec_channels, config.blocks_per_scale)
+        self.entropy_bottleneck = EntropyBottleneck(
+            config.enc_channels[-1], config.entropy_filters)
+
+    def blockify(self, coords: torch.Tensor, valid: torch.Tensor,
+                 plan: BlockPlan, dtype=torch.float32) -> BlockGrid:
+        """Voxel rows -> full-resolution BlockGrid with feats = mask, stored
+        in `dtype` (the activation storage dtype of the whole pyramid)."""
+        return B.blockify(
+            coords, valid[:, None].to(dtype), valid, plan.nb[0], stride=1,
+            res=plan.res, num_batches=self.num_batches,
+        )
+
+    def encode_fn(self, coords: torch.Tensor, valid: torch.Tensor,
+                  plan: BlockPlan):
+        """Analysis transform: (bottleneck grid, per-scale ground-truth
+        voxel counts, input voxel count).  `y.dropped` accumulates any
+        capacity overflow; the codec checks it before writing a stream."""
+        x = self.blockify(coords, valid, plan, dtype=B.COMPUTE_DTYPE)
+        y, out1, out0 = self.encoder(x, plan)
+        nums = [gt.voxels_per_batch() for gt in (out1, out0, x)]
+        return y, nums, x.voxel_count()
+
+    def decode_fn(self, y_q: BlockGrid, nums_list: Sequence[torch.Tensor],
+                  plan: BlockPlan) -> BlockGrid:
+        """Synthesis transform from a decoded bottleneck."""
+        return self.decoder(y_q, nums_list, plan)[1]
