@@ -6,16 +6,20 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. card identity (nvidia-smi name and power limit); TF32 off.
-  2. conv3: the CUDA kernel against conv3_plain at every (nb_cap, ci, co)
-     of the vox10 main path, f32 and bf16, with kernel / plain / library
-     (F.conv3d on the assembled halo) times and the bound.
+  2. conv3: the routed CUDA kernel (conv3_tc.cu on the tensor cores for
+     bf16 with ci, co >= 4, else conv3.cu) against conv3_plain at every
+     (nb_cap, ci, co) of the vox10 main path, f32 and bf16, with kernel /
+     plain / library (F.conv3d on the assembled halo) times, the bound, and
+     for the tensor-core shapes conv3.cu's time at the same bf16 shape.
   3. golden triple: tests/golden/golden.ckpt on the golden torus frame at
      full width in f32 -> points, bpp and D1 against expected.json.
   4. vox10 frame (torus_cloud(684, density=4, seed=0), 858,862 voxels)
      with ckpts/r4 in bf16 and f32: encode/decode seconds (best of 3 after
-     a warm-up), conv3 launches per encode+decode, peak device memory.
+     a warm-up), conv3 launches per encode+decode (64, of which 60 on the
+     tensor cores in bf16), peak device memory; bf16 bpp and D1 gates.
   5. torch.profiler breakdown of one encode+decode per dtype (written to
-     chiprun_out/).
+     chiprun_out/), and the share of empty output tiles of the bf16
+     tensor-core convs on this frame.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a CUDA device or without the pcgcv2_torch
@@ -57,6 +61,9 @@ PER_FRAME = {
 }
 TOL_F32 = 1e-4      # max abs error, kernel vs plain, f32
 TOL_BF16_REL = 2e-2  # max abs error / max |ref|, bf16 kernel vs f32 plain
+# vox10 bf16 readings of the CUDA-core kernel (chip_smoke.py on an H100,
+# 700 W): the tensor-core route must keep the codec's result
+VOX10_BF16_BPP, VOX10_BF16_D1 = 0.492671, 69.4159
 KERNEL_REPS = 10     # timed launches per kernel shape (median)
 VOX10_REPS = 3       # timed vox10 encode+decode reps per dtype (best)
 
@@ -158,7 +165,7 @@ def phase_kernels(device):
     from pcgcv2_torch.ops import blocks as B
     from pcgcv2_torch.ops import conv3 as K
 
-    log("== phase 2: conv3 CUDA kernel vs conv3_plain ==")
+    log("== phase 2: conv3 CUDA kernels vs conv3_plain ==")
     rows = []
     grids = {}
     for nb_cap in sorted({k[0] for k in PER_FRAME}, reverse=True):
@@ -177,7 +184,9 @@ def phase_kernels(device):
             cd = B._DTYPES[dtype]
             bg = base.replace(feats=feats32.to(cd))
             wc, bc = w.to(cd), b.to(cd)  # as the layers hand them over
-            got = K.conv3(bg, nbrs, wc, bc, cd).feats
+            kernel = K.route(ci, co, cd)
+            packed = K.pack_weight(wc) if kernel == "tc" else None
+            got = K.conv3(bg, nbrs, wc, bc, cd, packed=packed).feats
             # reference: plain f32 on the same (rounded) inputs
             ref = K.conv3_plain(
                 bg.replace(feats=bg.feats.float()), nbrs,
@@ -189,7 +198,11 @@ def phase_kernels(device):
                   else err <= TOL_BF16_REL * scale)
             h = K.halo(bg.feats, nbrs).permute(0, 4, 1, 2, 3).contiguous()
             wl = wc.permute(4, 3, 0, 1, 2).contiguous()
-            ms = cuda_ms(lambda: K.conv3(bg, nbrs, wc, bc, cd), KERNEL_REPS)
+            ms = cuda_ms(lambda: K.conv3(bg, nbrs, wc, bc, cd, packed=packed),
+                         KERNEL_REPS)
+            # the CUDA-core kernel at the same shape, beside the new one
+            simt_ms = ms if kernel == "simt" else cuda_ms(
+                lambda: K.launch("simt", bg, nbrs, wc, bc, cd), KERNEL_REPS)
             plain_ms = cuda_ms(lambda: K.conv3_plain(bg, nbrs, w, b, cd), 3)
             lib_ms = cuda_ms(lambda: F.conv3d(h, wl, bc), KERNEL_REPS)
             del h
@@ -198,28 +211,33 @@ def phase_kernels(device):
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             dense_flop = 2.0 * 27 * ci * co * B.VOL * int(base.count)
             row[dtype] = {
+                "route": kernel,
                 "max_abs_err": err, "max_abs_ref": scale, "ok": ok,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                 "dense_tflops": dense_flop / (ms * 1e-3) / 1e12,
             }
+            beside = f"(conv3.cu {simt_ms:.4f} ms)  " if kernel == "tc" else ""
             log(f"conv3 nb={nb_cap:<5d} ci={ci:<3d} co={co:<3d} {dtype:<8s} "
                 f"x{per_frame}/frame  err={err:.3g} (|ref|max {scale:.3g}) "
-                f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
+                f"{'OK' if ok else 'FAIL'}  {kernel} {ms:.4f} ms  {beside}"
                 f"plain {plain_ms:.4f} ms  F.conv3d(halo) {lib_ms:.4f} ms  "
                 f"bound {bound:.4f} ms ({bound_by})  "
                 f"dense {row[dtype]['dense_tflops']:.2f} TFLOP/s")
             if not ok:
                 raise AssertionError(
-                    f"conv3 kernel disagrees with conv3_plain at nb={nb_cap} "
-                    f"ci={ci} co={co} {dtype}: max abs err {err}")
+                    f"conv3 {kernel} kernel disagrees with conv3_plain at "
+                    f"nb={nb_cap} ci={ci} co={co} {dtype}: max abs err {err}")
         rows.append(row)
         torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
         tot = {k: sum(r["per_frame"] * r[dtype][k] for r in rows)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for k in ("ms", "simt_ms", "plain_ms", "library_ms",
+                         "bound_ms")}
         log(f"conv3 per-frame totals {dtype}: kernel {tot['ms']:.3f} ms  "
+            f"(conv3.cu alone {tot['simt_ms']:.3f} ms)  "
             f"plain {tot['plain_ms']:.3f} ms  F.conv3d(halo) "
             f"{tot['library_ms']:.3f} ms  bound {tot['bound_ms']:.4f} ms")
     return rows
@@ -232,12 +250,12 @@ def phase_kernels(device):
 
 def run_frame(coder, cloud, postfix: str):
     """One timed encode + decode; returns (enc s, dec s, decoded coords,
-    conv3 launches in this run)."""
+    conv3 launches in this run, of which on the tensor cores)."""
     import torch
 
     from pcgcv2_torch.ops import conv3 as K
 
-    K.conv3.launches = 0
+    K.conv3.launches = K.conv3.tc_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     coder.encode(cloud, postfix=postfix)
@@ -246,7 +264,7 @@ def run_frame(coder, cloud, postfix: str):
     dec = coder.decode(postfix=postfix)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return t1 - t0, t2 - t1, dec, K.conv3.launches
+    return t1 - t0, t2 - t1, dec, K.conv3.launches, K.conv3.tc_launches
 
 
 def phase_golden(device, workdir: str):
@@ -265,7 +283,7 @@ def phase_golden(device, workdir: str):
     cloud = torus_cloud(170, density=2.0, seed=42)
     coder = Coder(load_params(str(ROOT / "tests/golden/golden.ckpt")),
                   os.path.join(workdir, "golden"), res=256, device=device)
-    enc_s, dec_s, dec, launches = run_frame(coder, cloud, "")
+    enc_s, dec_s, dec, launches, tc = run_frame(coder, cloud, "")
     bits = sum(8 * v for v in coder.bitstream_bytes().values())
     bpp = bits / len(cloud)
     d1 = pc_metrics(cloud, np.unique(dec, axis=0), 256,
@@ -277,7 +295,7 @@ def phase_golden(device, workdir: str):
     assert len(dec) == exp["n_points"], f"golden decoded {len(dec)} points"
     assert abs(bpp - exp["bpp"]) <= 0.005 * exp["bpp"], "golden bpp"
     assert abs(d1 - exp["d1_psnr"]) <= 0.05, "golden D1"
-    assert launches >= 64, f"only {launches} conv3 launches"
+    assert launches == 64 and tc == 0, f"{launches} conv3 launches ({tc} tc)"
     return {"bpp": bpp, "d1_psnr": d1, "n_points": len(cloud),
             "decoded": len(dec), "launches": launches}
 
@@ -305,12 +323,15 @@ def phase_vox10(device, workdir: str, card: str):
         torch.cuda.reset_peak_memory_stats()
         best_enc = best_dec = float("inf")
         for rep in range(VOX10_REPS):
-            enc_s, dec_s, dec, launches = run_frame(coder, cloud, f"_{rep}")
+            enc_s, dec_s, dec, launches, tc = run_frame(coder, cloud,
+                                                        f"_{rep}")
             log(f"vox10 {dtype} rep {rep}: enc {enc_s:.4f} s  dec "
                 f"{dec_s:.4f} s  decoded {len(dec)} / {n}  conv3 launches "
-                f"{launches}  [{card}]")
+                f"{launches} ({tc} tensor-core)  [{card}]")
             assert len(dec) == n, f"decoded {len(dec)} points, input {n}"
-            assert launches >= 64, f"only {launches} conv3 launches"
+            want_tc = 60 if dtype == "bfloat16" else 0
+            assert launches == 64 and tc == want_tc, \
+                f"{launches} conv3 launches, {tc} tc (want 64, {want_tc})"
             best_enc, best_dec = min(best_enc, enc_s), min(best_dec, dec_s)
         peak = torch.cuda.max_memory_allocated()
         bits = sum(8 * v for v in coder.bitstream_bytes("_0").values())
@@ -318,14 +339,62 @@ def phase_vox10(device, workdir: str, card: str):
                         with_d2=False)["mseF,PSNR (p2point)"]
         results[dtype] = {
             "enc_s": best_enc, "dec_s": best_dec, "total_s": best_enc + best_dec,
-            "launches": launches, "peak_bytes": peak, "bpp": bits / n,
+            "launches": launches, "tc_launches": tc, "peak_bytes": peak,
+            "bpp": bits / n,
             "d1_psnr": d1, "n_points": n,
         }
         log(f"vox10 {dtype}: best enc {best_enc:.4f} s + dec {best_dec:.4f} s "
             f"= {best_enc + best_dec:.4f} s  peak device memory "
             f"{peak / 2**30:.2f} GiB  bpp {bits / n:.6f}  D1 {d1:.4f} dB  "
             f"[{card}]")
+        if dtype == "bfloat16":
+            assert abs(bits / n - VOX10_BF16_BPP) <= 0.005 * VOX10_BF16_BPP, \
+                f"vox10 bf16 bpp {bits / n} vs {VOX10_BF16_BPP}"
+            assert abs(d1 - VOX10_BF16_D1) <= 0.05, \
+                f"vox10 bf16 D1 {d1} vs {VOX10_BF16_D1}"
     return results
+
+
+def empty_tiles(coder, cloud) -> dict:
+    """Share of empty output tiles over the tensor-core conv3 calls of one
+    encode + decode, from the masks with plain torch: per m16 tile (one
+    (x, y) row of 16 z), per warp tile (2 rows: the kernel skips its MMAs)
+    and per CTA slab (4 x-planes: the kernel skips staging too), over the
+    live rows; each also weighted by the call's dense work 27*ci*co."""
+    import torch
+
+    from pcgcv2_torch.models import layers
+    from pcgcv2_torch.ops import blocks as B
+    from pcgcv2_torch.ops import conv3 as K
+
+    real = layers.conv3
+    tally = {k: [0, 0, 0.0, 0.0] for k in ("row16", "warp32", "slab4")}
+
+    def spy(bg, nbrs, weight, bias=None, compute_dtype=None, packed=None):
+        ci, co = bg.channels, weight.shape[-1]
+        if K.route(ci, co, compute_dtype or B.COMPUTE_DTYPE) == "tc":
+            n = int(bg.count)
+            m = bg.mask[:n].reshape(n, B.BS, B.BS, B.BS)
+            rows = m.any(-1)
+            for name, occ in (("row16", rows),
+                              ("warp32", rows.reshape(n, B.BS, 8, 2).any(-1)),
+                              ("slab4", m.reshape(n, 4, -1).any(-1))):
+                empty = occ.numel() - int(occ.sum())
+                t = tally[name]
+                t[0] += empty
+                t[1] += occ.numel()
+                t[2] += empty * 27 * ci * co
+                t[3] += occ.numel() * 27 * ci * co
+        return real(bg, nbrs, weight, bias, compute_dtype, packed)
+
+    layers.conv3 = spy
+    try:
+        run_frame(coder, cloud, "_tiles")
+    finally:
+        layers.conv3 = real
+    torch.cuda.synchronize()
+    return {name: {"empty": t[0], "tiles": t[1], "share": t[0] / t[1],
+                   "work_share": t[2] / t[3]} for name, t in tally.items()}
 
 
 def phase_profile(device, workdir: str):
@@ -349,7 +418,7 @@ def phase_profile(device, workdir: str):
         run_frame(coder, cloud, "_w")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            enc_s, dec_s, _, _ = run_frame(coder, cloud, "_p")
+            enc_s, dec_s, _, _, _ = run_frame(coder, cloud, "_p")
         ka = prof.key_averages()
         attr = ("device_time_total" if hasattr(ka[0], "device_time_total")
                 else "cuda_time_total")
@@ -358,24 +427,35 @@ def phase_profile(device, workdir: str):
              if e.device_type == torch.autograd.DeviceType.CUDA),
             key=lambda e: -getattr(e, attr))
         dev_ms = sum(getattr(e, attr) for e in kernels) / 1e3
-        conv_ms = sum(getattr(e, attr) for e in kernels
-                      if "conv3_kernel" in e.key) / 1e3
-        conv_n = sum(e.count for e in kernels if "conv3_kernel" in e.key)
+        conv = [e for e in kernels
+                if "conv3_kernel" in e.key or "conv3_tc_kernel" in e.key]
+        conv_ms = sum(getattr(e, attr) for e in conv) / 1e3
+        conv_n = sum(e.count for e in conv)
+        tc_ms = sum(getattr(e, attr) for e in conv
+                    if "conv3_tc_kernel" in e.key) / 1e3
         wall_ms = (enc_s + dec_s) * 1e3
         (OUT_DIR / f"profile_{dtype}.txt").write_text(
             ka.table(sort_by=attr, row_limit=60))
         summary[dtype] = {
             "wall_ms": wall_ms, "enc_ms": enc_s * 1e3, "dec_ms": dec_s * 1e3,
             "device_ms": dev_ms, "conv3_ms": conv_ms, "conv3_launches": conv_n,
-            "idle_share": 1.0 - dev_ms / wall_ms,
+            "conv3_tc_ms": tc_ms, "idle_share": 1.0 - dev_ms / wall_ms,
         }
         log(f"profile {dtype}: wall {wall_ms:.2f} ms (enc {enc_s * 1e3:.2f} "
             f"+ dec {dec_s * 1e3:.2f}); device kernels {dev_ms:.2f} ms, of "
-            f"which conv3 {conv_ms:.2f} ms in {conv_n} launches; device idle "
+            f"which conv3 {conv_ms:.2f} ms in {conv_n} launches (tensor-core "
+            f"{tc_ms:.2f} ms); device idle "
             f"{100 * (1 - dev_ms / wall_ms):.1f}% of wall")
         for e in kernels[:12]:
             log(f"  {getattr(e, attr) / 1e3:9.3f} ms  x{e.count:<5d} "
                 f"{e.key[:100]}")
+        if dtype == "bfloat16":
+            tiles = empty_tiles(coder, cloud)
+            summary["empty_tiles_bf16_tc"] = tiles
+            for name, t in tiles.items():
+                log(f"empty output tiles of the tc convs, {name}: "
+                    f"{t['empty']} / {t['tiles']} = {100 * t['share']:.2f}% "
+                    f"({100 * t['work_share']:.2f}% of the dense work)")
     return summary
 
 
@@ -437,7 +517,8 @@ def main(argv=None) -> int:
             return sum(r["per_frame"] * r[dtype][key] for r in rows)
 
         def entry(dtype):
-            launches = report.get("vox10", {}).get(dtype, {}).get("launches")
+            vox = report.get("vox10", {}).get(dtype, {})
+            launches = vox.get("launches")
             by_bytes = per_frame(dtype, "bytes_ms") >= per_frame(dtype, "ops_ms")
             return {
                 "launches": launches,
@@ -447,10 +528,13 @@ def main(argv=None) -> int:
                 "bound_ms": per_frame(dtype, "bound_ms"),
                 "bound_by": "bytes" if by_bytes else "operations",
                 "library_ms": per_frame(dtype, "library_ms"),
+                "tc_launches": vox.get("tc_launches"),
+                "simt_ms": per_frame(dtype, "simt_ms"),
             }
 
-        # one entry per kernel: times summed over the 64 conv3 calls of one
-        # vox10 encode+decode (f32 headline, bf16 alongside)
+        # one entry for conv3: times summed over the 64 conv3 calls of one
+        # vox10 encode+decode (f32 headline, bf16 alongside), with the
+        # kernel each dtype routes to
         kernels.append({
             "name": "conv3",
             "route": "cuda",
@@ -458,7 +542,13 @@ def main(argv=None) -> int:
             "replaces": "pcgcv2_tpu/ops/pallas_conv.py:119",
             **entry("float32"),
             "dtype": "float32",
-            "bfloat16": entry("bfloat16"),
+            "kernel_route": "simt (conv3.cu, CUDA cores)",
+            "bfloat16": {
+                **entry("bfloat16"),
+                "source": "pcgcv2_torch/csrc/conv3_tc.cu",
+                "kernel_route": "tc (conv3_tc.cu, mma.sync) for ci, co >= 4; "
+                                "simt (conv3.cu) for ci or co = 1",
+            },
             "library": "F.conv3d on the assembled halo (dense part only)",
         })
     log(json.dumps({"kernels": kernels}))

@@ -13,7 +13,7 @@ from torch import nn
 
 from pcgcv2_torch.ops import blocks as B
 from pcgcv2_torch.ops.blocks import BlockGrid
-from pcgcv2_torch.ops.conv3 import conv3
+from pcgcv2_torch.ops.conv3 import conv3, pack_weight, route
 
 
 def relu(bg: BlockGrid) -> BlockGrid:
@@ -23,7 +23,8 @@ def relu(bg: BlockGrid) -> BlockGrid:
 class _Weighted(nn.Module):
     """A layer with `kernel` and `bias`, which it hands to its op in the
     compute dtype: cast once per dtype (and again only when a parameter is
-    replaced or written in place), not on every call."""
+    replaced or written in place), not on every call.  `_prepare` makes the
+    op's other form of the cast kernel under the same key."""
 
     def __init__(self, kernel_shape, co: int):
         super().__init__()
@@ -31,16 +32,21 @@ class _Weighted(nn.Module):
         self.bias = nn.Parameter(torch.zeros(co))
         self._cast_key = None
         self._cast = None
+        self._prepared = None
 
     def weights(self):
         cd = B.COMPUTE_DTYPE
         k, b = self.kernel, self.bias
         key = (cd, k.data_ptr(), k._version, b.data_ptr(), b._version)
         if key != self._cast_key:
-            self._cast = (k.detach().to(cd).contiguous(),
-                          b.detach().to(cd).contiguous())
+            kc = k.detach().to(cd).contiguous()
+            self._cast = (kc, b.detach().to(cd).contiguous())
+            self._prepared = self._prepare(kc)
             self._cast_key = key
         return self._cast
+
+    def _prepare(self, kernel: torch.Tensor):
+        return None
 
 
 class BConv3(_Weighted):
@@ -49,8 +55,21 @@ class BConv3(_Weighted):
     def __init__(self, ci: int, co: int):
         super().__init__((3, 3, 3, ci, co), co)
 
+    def _prepare(self, kernel: torch.Tensor):
+        ci, co = kernel.shape[3], kernel.shape[4]
+        if route(ci, co, kernel.dtype) == "tc":
+            return pack_weight(kernel)
+        return None
+
+    def packed(self):
+        """The cast kernel in mma fragment order where the tensor-core
+        conv3 takes it (bf16, ci and co >= 4), else None."""
+        self.weights()
+        return self._prepared
+
     def forward(self, bg: BlockGrid, nbrs: torch.Tensor) -> BlockGrid:
-        return conv3(bg, nbrs, *self.weights())
+        k, b = self.weights()
+        return conv3(bg, nbrs, k, b, packed=self._prepared)
 
 
 class BConv1(_Weighted):

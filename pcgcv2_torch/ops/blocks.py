@@ -12,7 +12,7 @@ block coordinates to block rows.  Invariants shared with the JAX package:
 * a capacity overflow increments `dropped` and never writes the sentinel.
 
 Everything here is plain PyTorch: the JAX package computed these ops
-outside Pallas.  The 3^3 convolution lives in ops/conv3.py (CUDA kernel +
+outside Pallas.  The 3^3 convolution lives in ops/conv3.py (CUDA kernels +
 plain version).  Scatters with JAX's `mode="drop"` semantics route each
 dropped element to a private slot past the end of the buffer (as the JAX
 code does with out-of-range positions), so no element is lost silently

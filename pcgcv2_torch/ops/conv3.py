@@ -1,20 +1,28 @@
-"""3^3 stride-1 sparse convolution: the hand-written CUDA kernel and its
+"""3^3 stride-1 sparse convolution: the hand-written CUDA kernels and their
 plain PyTorch version.
 
 `conv3` replaces the TPU kernel pcgcv2_tpu/ops/pallas_conv.py::conv3_pallas
 (:119), the fused halo-assembly + 3^3 conv, and the XLA path it mirrors,
-pcgcv2_tpu/ops/blocks.py::conv3 (:656).  On a CUDA tensor it launches
-csrc/conv3.cu (built with nvcc for sm_90a at first use, loaded with
-ctypes) or raises; on a CPU tensor it runs `conv3_plain`.
+pcgcv2_tpu/ops/blocks.py::conv3 (:656).  On a CUDA tensor it launches one
+of two kernels (built with nvcc for sm_90a at first use, loaded with
+ctypes) or raises; on a CPU tensor it runs `conv3_plain`.  `route` picks
+the kernel:
+
+* "tc", csrc/conv3_tc.cu: bf16 with ci, co in {4, 8, 16, 32, 64}.  An
+  implicit GEMM on the tensor cores (mma.sync m16n8k16 / m16n8k8): each
+  CTA stages the 18x18xci input planes of one block row with cp.async and
+  feeds ldmatrix from them; the weights come pre-packed in fragment order
+  (`pack_weight`, done once per layer by models/layers.py).  Output tiles
+  without an occupied slot skip the arithmetic.
+* "simt", csrc/conv3.cu: every f32 call, and ci = 1 or co = 1.  f32 FMA on
+  the CUDA cores, one CTA per (block row, output x-plane).
 
 What bounds it on the H100: at the checkpoint's channel pairs the dense
-block conv does 13-120 FLOP per byte moved, so it is bound by arithmetic
-except for the co = 1 occupancy heads.  The kernel gathers each 18x18 input
-plane from the 9 neighbour rows into shared memory (the TPU's 27 slab DMAs
-become ordinary global loads), keeps every output channel of one voxel in
-registers, and fuses bias, bf16 rounding and the occupancy mask into the
-epilogue; rows >= count are written as zeros without arithmetic.  It runs
-on the CUDA cores in f32; tensor cores are later work.
+block conv does 13-860 FLOP per byte moved, so it is bound by arithmetic
+except for the co = 1 occupancy heads.  Both kernels fuse bias, bf16
+rounding and the occupancy mask into the epilogue and write rows >= count
+as zeros without arithmetic.  `conv3.launches` counts every launch,
+`conv3.tc_launches` those of the tensor-core kernel.
 
 `conv3_plain` assembles the (BS+2)^3 halo with one gather and runs the 27
 tap matmuls with float32 accumulation.  The TPU lane devices (ci -> 16
@@ -40,11 +48,12 @@ from pcgcv2_torch.ops import blocks as B
 HS = B.BS + 2  # halo side
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SRC = _CSRC / "conv3.cu"
+_SRCS = (_CSRC / "conv3.cu", _CSRC / "conv3_tc.cu")
 _BUILD_DIR = _CSRC / "build"
 _CO_SUPPORTED = (1, 4, 8, 16, 32, 64)
+_TC_CHANNELS = (4, 8, 16, 32, 64)
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -59,27 +68,42 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/conv3.cu into a plain C-interface shared library.
+    """Compile csrc/conv3.cu and csrc/conv3_tc.cu (one nvcc per source, run
+    together) and link them into one plain C-interface shared library.
 
-    The library name carries a hash of the source and flags, so a changed
-    source is rebuilt and parallel builds never clobber each other's
-    half-written file (each writes a private temp file, then renames)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    lib = _BUILD_DIR / f"libpcgc_conv3_{tag[:16]}.so"
+    The library name carries a hash of both sources and the flags, so a
+    changed source is rebuilt and parallel builds never clobber each
+    other's half-written files (each writes private temp files, then
+    renames).  `verbose` prints nvcc's `-Xptxas -v` report."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in _SRCS:
+        h.update(src.read_bytes())
+    tag = h.hexdigest()[:16]
+    lib = _BUILD_DIR / f"libpcgc_conv3_{tag}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    pid = os.getpid()
+    objs = [_BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in _SRCS]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    procs = [subprocess.Popen([_nvcc(), *ptxas, *_NVCC_FLAGS, "-c", "-o",
+                               str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(_SRCS, objs)]
+    errs = [p.communicate()[1] for p in procs]  # waits for both
+    for src, p, err in zip(_SRCS, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {src}:\n{err}")
+        if verbose:
+            print(f"nvcc {src.name}:\n{err}", flush=True)
+    tmp = lib.with_suffix(f".{pid}.tmp")
+    r = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                        *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}) building {_SRC}:\n{r.stderr}")
-    if verbose:
-        print(r.stderr, flush=True)
+        raise RuntimeError(f"nvcc failed linking {lib.name}:\n{r.stderr}")
     os.replace(tmp, lib)
     return lib
 
@@ -91,9 +115,9 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp = ctypes.c_void_p
             ci = ctypes.c_int
-            lib.pcgc_conv3.restype = ci
-            lib.pcgc_conv3.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                       ci, ci, ci, ci, vp]
+            for fn in (lib.pcgc_conv3, lib.pcgc_conv3_tc):
+                fn.restype = ci
+                fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
             _lib = lib
         return _lib
 
@@ -174,7 +198,44 @@ def conv3_plain(
 # ---------------------------------------------------------------------------
 
 
-def _check(bg: B.BlockGrid, nbrs, weight, bias, cd) -> None:
+def route(ci: int, co: int, dtype) -> str:
+    """The kernel a CUDA call takes: "tc" (csrc/conv3_tc.cu, tensor cores)
+    for bf16 with ci, co in {4, 8, 16, 32, 64}; "simt" (csrc/conv3.cu) for
+    every f32 call and for ci = 1 or co = 1."""
+    if (dtype == torch.bfloat16 and ci in _TC_CHANNELS
+            and co in _TC_CHANNELS):
+        return "tc"
+    return "simt"
+
+
+def _tc_dims(ci: int, co: int) -> tuple:
+    """(ci padded, co padded, mma depth) of the tensor-core kernel."""
+    cip, cop = max(ci, 8), max(co, 8)
+    return cip, cop, 16 if cip >= 16 else 8
+
+
+def pack_weight(weight: torch.Tensor) -> torch.Tensor:
+    """[3, 3, 3, ci, co] -> the B operand of conv3_tc.cu in mma fragment
+    order, [27, ci/KS, co/8, 8, 4, KS/8, 2] (tap, k chunk, n tile, g, q, r,
+    e): lane 4g+q of n tile nt reads W[tap, KS*kc + 8r + 2q + e, 8nt + g]
+    as KS/8 bf16 pairs.  KS is the mma depth (16, or 8 for ci <= 8); ci
+    and co below 8 are zero-padded to 8."""
+    ci, co = weight.shape[3], weight.shape[4]
+    cip, cop, ks = _tc_dims(ci, co)
+    w = torch.nn.functional.pad(weight.reshape(27, ci, co),
+                                (0, cop - co, 0, cip - ci))
+    w = w.reshape(27, cip // ks, ks // 8, 4, 2, cop // 8, 8)
+    return w.permute(0, 1, 5, 6, 3, 2, 4).contiguous()
+
+
+def unpack_weight(packed: torch.Tensor, ci: int, co: int) -> torch.Tensor:
+    """Inverse of `pack_weight`: the [3, 3, 3, ci, co] kernel."""
+    cip, cop, _ = _tc_dims(ci, co)
+    w = packed.permute(0, 1, 5, 4, 6, 2, 3).reshape(27, cip, cop)
+    return w[:, :ci, :co].reshape(3, 3, 3, ci, co)
+
+
+def _check(bg: B.BlockGrid, nbrs, weight, bias, cd, packed, kernel) -> None:
     nb, ci = bg.nb_cap, bg.channels
     dev = bg.feats.device
     if B.BS != 16:
@@ -190,9 +251,25 @@ def _check(bg: B.BlockGrid, nbrs, weight, bias, cd) -> None:
         raise NotImplementedError(
             f"conv3 kernel has no instance for co={co}; "
             f"supported: {_CO_SUPPORTED}")
+    if kernel == "tc":
+        if cd != torch.bfloat16 or ci not in _TC_CHANNELS \
+                or co not in _TC_CHANNELS:
+            raise NotImplementedError(
+                f"the tensor-core conv3 has no instance for ci={ci} co={co} "
+                f"{cd}")
+        if packed is None:
+            raise ValueError("the tensor-core conv3 needs the weight packed "
+                             "by pack_weight (the layers pack it once)")
+        cip, cop, ks = _tc_dims(ci, co)
+        shape = (27, cip // ks, cop // 8, 8, 4, ks // 8, 2)
+        if tuple(packed.shape) != shape:
+            raise ValueError(f"packed weight {tuple(packed.shape)} is not "
+                             f"pack_weight's {shape}")
+    elif kernel != "simt":
+        raise ValueError(f"no conv3 kernel {kernel!r}")
     if bias is not None and tuple(bias.shape) != (co,):
         raise ValueError(f"bias {tuple(bias.shape)} does not match co={co}")
-    for name, t in (("weight", weight), ("bias", bias)):
+    for name, t in (("weight", weight), ("bias", bias), ("packed", packed)):
         if t is not None and (t.dtype != cd or not t.is_contiguous()):
             raise ValueError(
                 f"{name} must be contiguous {cd} (the layers cast it once), "
@@ -206,9 +283,51 @@ def _check(bg: B.BlockGrid, nbrs, weight, bias, cd) -> None:
     if bg.count.dtype != torch.int32 or bg.count.numel() != 1:
         raise ValueError("count must be an int32 scalar tensor")
     for name, t in (("nbrs", nbrs), ("mask", bg.mask), ("count", bg.count),
-                    ("weight", weight), ("bias", bias)):
+                    ("weight", weight), ("bias", bias), ("packed", packed)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, feats on {dev}")
+
+
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """`t` contiguous with its first byte on an `nbytes` boundary (cp.async
+    and the kernels' vector loads need it)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
+def launch(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
+           weight: torch.Tensor, bias: Optional[torch.Tensor], cd,
+           packed: Optional[torch.Tensor] = None) -> B.BlockGrid:
+    """Launch one conv3 kernel ("tc" or "simt") on CUDA tensors, or raise.
+
+    `conv3` calls it with `route`'s choice; it is public so that a check
+    can time both kernels at one shape.  Counts every launch in
+    `conv3.launches` and the tensor-core ones in `conv3.tc_launches`."""
+    dev = bg.feats.device
+    if dev.type != "cuda":
+        raise ValueError(f"conv3 kernels run on cuda tensors, not {dev}")
+    _check(bg, nbrs, weight, bias, cd, packed, kernel)
+    nb, ci, co = bg.nb_cap, bg.channels, weight.shape[4]
+    x = _aligned(bg.feats.to(cd), 16)
+    nbrs = nbrs.contiguous()
+    mask = _aligned(bg.mask, 4)
+    out = torch.empty((nb, B.VOL, co), dtype=cd, device=dev)
+    lib = _load()
+    fn = lib.pcgc_conv3_tc if kernel == "tc" else lib.pcgc_conv3
+    rc = fn(
+        x.data_ptr(), nbrs.data_ptr(), mask.data_ptr(), bg.count.data_ptr(),
+        (packed if kernel == "tc" else weight).data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        out.data_ptr(), nb, ci, co, int(cd == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"conv3 {kernel} kernel launch failed (code {rc}) "
+                           f"at nb={nb} ci={ci} co={co} dtype={cd}")
+    conv3.launches += 1
+    conv3.tc_launches += kernel == "tc"
+    # the kernel applied the mask and zeroed rows >= count (with_feats)
+    return bg.replace(feats=out.to(bg.feats.dtype))
 
 
 def conv3(
@@ -217,37 +336,23 @@ def conv3(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     compute_dtype=None,
+    packed: Optional[torch.Tensor] = None,
 ) -> B.BlockGrid:
     """3^3 stride-1 sparse convolution of `bg` with weight [3,3,3,ci,co].
 
-    CPU tensors take `conv3_plain`; CUDA tensors launch the CUDA kernel
-    (counted in `conv3.launches`) or raise.  On CUDA, weight and bias must
-    already be contiguous in the compute dtype."""
+    CPU tensors take `conv3_plain`; CUDA tensors launch the kernel that
+    `route` picks, or raise.  On CUDA, weight and bias must already be
+    contiguous in the compute dtype, and the "tc" route also needs
+    `packed = pack_weight(weight)`."""
     cd = compute_dtype or B.COMPUTE_DTYPE
     dev = bg.feats.device
     if dev.type == "cpu":
         return conv3_plain(bg, nbrs, weight, bias, cd)
     if dev.type != "cuda":
         raise ValueError(f"conv3 runs on cpu or cuda tensors, not {dev}")
-    _check(bg, nbrs, weight, bias, cd)
-    nb, ci, co = bg.nb_cap, bg.channels, weight.shape[4]
-    x = bg.feats.to(cd).contiguous()
-    nbrs = nbrs.contiguous()
-    mask = bg.mask.contiguous()
-    out = torch.empty((nb, B.VOL, co), dtype=cd, device=dev)
-    lib = _load()
-    rc = lib.pcgc_conv3(
-        x.data_ptr(), nbrs.data_ptr(), mask.data_ptr(), bg.count.data_ptr(),
-        weight.data_ptr(), bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), nb, ci, co, int(cd == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"conv3 kernel launch failed (code {rc}) at "
-                           f"nb={nb} ci={ci} co={co} dtype={cd}")
-    conv3.launches += 1
-    # the kernel applied the mask and zeroed rows >= count (with_feats)
-    return bg.replace(feats=out.to(bg.feats.dtype))
+    kernel = route(bg.channels, weight.shape[-1], cd)
+    return launch(kernel, bg, nbrs, weight, bias, cd, packed)
 
 
 conv3.launches = 0
+conv3.tc_launches = 0

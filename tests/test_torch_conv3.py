@@ -137,3 +137,83 @@ def test_layer_casts_weights_once_per_dtype():
         assert layer.weights()[0].dtype == torch.float32
     finally:
         TB.set_compute_dtype("float32")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co", PAIRS)
+def test_route(ci, co, dtype):
+    """bf16 with ci, co >= 4 runs on the tensor cores; f32 and the ci = 1 /
+    co = 1 convs stay on the CUDA-core kernel."""
+    want = ("tc" if dtype == torch.bfloat16 and min(ci, co) >= 4
+            else "simt")
+    assert TK.route(ci, co, dtype) == want
+
+
+TC_PAIRS = [(ci, co) for ci, co in PAIRS if min(ci, co) >= 4]
+
+
+@pytest.mark.parametrize("ci,co", TC_PAIRS)
+def test_pack_weight_roundtrip(ci, co):
+    w = torch.from_numpy(_weights(ci, co)[0]).to(torch.bfloat16)
+    packed = TK.pack_weight(w)
+    assert packed.is_contiguous() and packed.dtype == torch.bfloat16
+    torch.testing.assert_close(TK.unpack_weight(packed, ci, co), w,
+                               rtol=0, atol=0)
+    # ci and co below 8 are padded with zeros, nothing else is added
+    assert packed.numel() == 27 * max(ci, 8) * max(co, 8)
+    assert int((packed != 0).sum()) == int((w != 0).sum())
+
+
+@pytest.mark.parametrize("ci,co", [(8, 16), (32, 8)])
+def test_pack_weight_fragment_order(ci, co):
+    """Lane 4g+q of n tile nt holds W[tap, KS*kc + 8r + 2q + e, 8nt + g],
+    the B fragment of mma.sync m16n8k{KS} (KS = 8 for ci = 8, else 16)."""
+    w = torch.arange(27 * ci * co, dtype=torch.float32).reshape(
+        3, 3, 3, ci, co)
+    packed = TK.pack_weight(w)
+    ks = 8 if ci == 8 else 16
+    wf = w.reshape(27, ci, co)
+    rng = np.random.RandomState(0)
+    for _ in range(50):
+        tap, kc, nt = (rng.randint(27), rng.randint(ci // ks),
+                       rng.randint(co // 8))
+        g, q, r, e = (rng.randint(8), rng.randint(4), rng.randint(ks // 8),
+                      rng.randint(2))
+        assert (packed[tap, kc, nt, g, q, r, e]
+                == wf[tap, ks * kc + 8 * r + 2 * q + e, 8 * nt + g])
+
+
+def test_layer_packs_once_per_dtype():
+    """BConv3 packs its bf16 kernel for the tensor-core route once, under
+    the cast's key: again only after a parameter is written; not in f32 and
+    not for a co = 1 head."""
+    from pcgcv2_torch.models.layers import BConv3
+
+    layer, head = BConv3(16, 32), BConv3(16, 1)
+    try:
+        TB.set_compute_dtype("bfloat16")
+        k, _ = layer.weights()
+        packed = layer.packed()
+        assert packed is not None and layer.packed() is packed
+        torch.testing.assert_close(TK.unpack_weight(packed, 16, 32), k,
+                                   rtol=0, atol=0)
+        assert head.packed() is None
+        with torch.no_grad():
+            layer.kernel.fill_(0.5)
+        packed2 = layer.packed()
+        assert packed2 is not packed and bool((packed2 == 0.5).all())
+        TB.set_compute_dtype("float32")
+        assert layer.packed() is None
+    finally:
+        TB.set_compute_dtype("float32")
+
+
+def test_kernel_launch_needs_cuda_tensors():
+    """`launch` runs a kernel or raises; it never takes the plain path."""
+    _, tbg = _grids(8)
+    w, b = _weights(8, 8)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="cuda"):
+        TK.launch("tc", tbg, TB.neighbor_rows(tbg), wb,
+                  torch.from_numpy(b).to(torch.bfloat16), torch.bfloat16,
+                  TK.pack_weight(wb))
