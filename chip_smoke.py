@@ -6,20 +6,21 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. card identity (nvidia-smi name and power limit); TF32 off.
-  2. conv3: the routed CUDA kernel (conv3_tc.cu on the tensor cores for
-     bf16 with ci, co >= 4, else conv3.cu) against conv3_plain at every
-     (nb_cap, ci, co) of the vox10 main path, f32 and bf16, with kernel /
-     plain / library (F.conv3d on the assembled halo) times, the bound, and
-     for the tensor-core shapes conv3.cu's time at the same bf16 shape.
+  2. conv3: the routed CUDA kernel (conv3_tc.cu on the tensor cores, at
+     every shape of the main path) and the CUDA-core kernel conv3.cu, each
+     against conv3_plain at every (nb_cap, ci, co) of the vox10 main path,
+     f32 and bf16, with kernel / conv3.cu / plain / library (F.conv3d on
+     the assembled halo) times and the bound.
   3. golden triple: tests/golden/golden.ckpt on the golden torus frame at
      full width in f32 -> points, bpp and D1 against expected.json.
   4. vox10 frame (torus_cloud(684, density=4, seed=0), 858,862 voxels)
      with ckpts/r4 in bf16 and f32: encode/decode seconds (best of 3 after
-     a warm-up), conv3 launches per encode+decode (64, of which 60 on the
-     tensor cores in bf16), peak device memory; bf16 bpp and D1 gates.
+     a warm-up), conv3 launches per encode+decode (64, all on the tensor
+     cores), peak device memory; bpp and D1 gates in both dtypes.
   5. torch.profiler breakdown of one encode+decode per dtype (written to
-     chiprun_out/), and the share of empty output tiles of the bf16
-     tensor-core convs on this frame.
+     OUT_DIR), and the share of empty output tiles of the tensor-core
+     convs on this frame per dtype (CTA slabs counted as 4 x-planes of 16
+     y rows; the f32 ci = 64 CTAs cover half of that).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a CUDA device or without the pcgcv2_torch
@@ -61,9 +62,9 @@ PER_FRAME = {
 }
 TOL_F32 = 1e-4      # max abs error, kernel vs plain, f32
 TOL_BF16_REL = 2e-2  # max abs error / max |ref|, bf16 kernel vs f32 plain
-# vox10 bf16 readings of the CUDA-core kernel (chip_smoke.py on an H100,
-# 700 W): the tensor-core route must keep the codec's result
-VOX10_BF16_BPP, VOX10_BF16_D1 = 0.492671, 69.4159
+# vox10 readings of the CUDA-core kernel (chip_smoke.py on an H100,
+# 700 W), bf16 and f32: the tensor-core route must keep the codec's result
+VOX10_GATES = {"bfloat16": (0.492671, 69.4159), "float32": (0.493043, 69.4005)}
 KERNEL_REPS = 10     # timed launches per kernel shape (median)
 VOX10_REPS = 3       # timed vox10 encode+decode reps per dtype (best)
 
@@ -186,22 +187,24 @@ def phase_kernels(device):
             wc, bc = w.to(cd), b.to(cd)  # as the layers hand them over
             kernel = K.route(ci, co, cd)
             packed = K.pack_weight(wc) if kernel == "tc" else None
-            got = K.conv3(bg, nbrs, wc, bc, cd, packed=packed).feats
             # reference: plain f32 on the same (rounded) inputs
             ref = K.conv3_plain(
                 bg.replace(feats=bg.feats.float()), nbrs,
                 wc.float(), bc.float(), torch.float32).feats
+            scale = float(ref.abs().max())
+            tol = TOL_F32 if dtype == "float32" else TOL_BF16_REL * scale
+            got = K.conv3(bg, nbrs, wc, bc, cd, packed=packed).feats
+            # the CUDA-core kernel at the same shape, checked and timed
+            got_simt = K.launch("simt", bg, nbrs, wc, bc, cd).feats
             torch.cuda.synchronize()
             err = float((got.float() - ref).abs().max())
-            scale = float(ref.abs().max())
-            ok = (err <= TOL_F32 if dtype == "float32"
-                  else err <= TOL_BF16_REL * scale)
+            simt_err = float((got_simt.float() - ref).abs().max())
+            ok = err <= tol and simt_err <= tol
             h = K.halo(bg.feats, nbrs).permute(0, 4, 1, 2, 3).contiguous()
             wl = wc.permute(4, 3, 0, 1, 2).contiguous()
             ms = cuda_ms(lambda: K.conv3(bg, nbrs, wc, bc, cd, packed=packed),
                          KERNEL_REPS)
-            # the CUDA-core kernel at the same shape, beside the new one
-            simt_ms = ms if kernel == "simt" else cuda_ms(
+            simt_ms = cuda_ms(
                 lambda: K.launch("simt", bg, nbrs, wc, bc, cd), KERNEL_REPS)
             plain_ms = cuda_ms(lambda: K.conv3_plain(bg, nbrs, w, b, cd), 3)
             lib_ms = cuda_ms(lambda: F.conv3d(h, wl, bc), KERNEL_REPS)
@@ -212,24 +215,26 @@ def phase_kernels(device):
             dense_flop = 2.0 * 27 * ci * co * B.VOL * int(base.count)
             row[dtype] = {
                 "route": kernel,
-                "max_abs_err": err, "max_abs_ref": scale, "ok": ok,
+                "max_abs_err": err, "simt_max_abs_err": simt_err,
+                "max_abs_ref": scale, "ok": ok,
                 "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                 "dense_tflops": dense_flop / (ms * 1e-3) / 1e12,
             }
-            beside = f"(conv3.cu {simt_ms:.4f} ms)  " if kernel == "tc" else ""
             log(f"conv3 nb={nb_cap:<5d} ci={ci:<3d} co={co:<3d} {dtype:<8s} "
                 f"x{per_frame}/frame  err={err:.3g} (|ref|max {scale:.3g}) "
-                f"{'OK' if ok else 'FAIL'}  {kernel} {ms:.4f} ms  {beside}"
+                f"{'OK' if ok else 'FAIL'}  {kernel} {ms:.4f} ms  "
+                f"(conv3.cu {simt_ms:.4f} ms, err {simt_err:.3g})  "
                 f"plain {plain_ms:.4f} ms  F.conv3d(halo) {lib_ms:.4f} ms  "
                 f"bound {bound:.4f} ms ({bound_by})  "
                 f"dense {row[dtype]['dense_tflops']:.2f} TFLOP/s")
             if not ok:
                 raise AssertionError(
-                    f"conv3 {kernel} kernel disagrees with conv3_plain at "
-                    f"nb={nb_cap} ci={ci} co={co} {dtype}: max abs err {err}")
+                    f"conv3 kernels disagree with conv3_plain at nb={nb_cap} "
+                    f"ci={ci} co={co} {dtype}: max abs err {kernel} {err}, "
+                    f"conv3.cu {simt_err} (tolerance {tol})")
         rows.append(row)
         torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
@@ -295,7 +300,8 @@ def phase_golden(device, workdir: str):
     assert len(dec) == exp["n_points"], f"golden decoded {len(dec)} points"
     assert abs(bpp - exp["bpp"]) <= 0.005 * exp["bpp"], "golden bpp"
     assert abs(d1 - exp["d1_psnr"]) <= 0.05, "golden D1"
-    assert launches == 64 and tc == 0, f"{launches} conv3 launches ({tc} tc)"
+    assert launches == 64 and tc == 64, \
+        f"{launches} conv3 launches ({tc} tc)"
     return {"bpp": bpp, "d1_psnr": d1, "n_points": len(cloud),
             "decoded": len(dec), "launches": launches}
 
@@ -329,9 +335,8 @@ def phase_vox10(device, workdir: str, card: str):
                 f"{dec_s:.4f} s  decoded {len(dec)} / {n}  conv3 launches "
                 f"{launches} ({tc} tensor-core)  [{card}]")
             assert len(dec) == n, f"decoded {len(dec)} points, input {n}"
-            want_tc = 60 if dtype == "bfloat16" else 0
-            assert launches == 64 and tc == want_tc, \
-                f"{launches} conv3 launches, {tc} tc (want 64, {want_tc})"
+            assert launches == 64 and tc == 64, \
+                f"{launches} conv3 launches, {tc} tc (want 64, all tc)"
             best_enc, best_dec = min(best_enc, enc_s), min(best_dec, dec_s)
         peak = torch.cuda.max_memory_allocated()
         bits = sum(8 * v for v in coder.bitstream_bytes("_0").values())
@@ -347,11 +352,10 @@ def phase_vox10(device, workdir: str, card: str):
             f"= {best_enc + best_dec:.4f} s  peak device memory "
             f"{peak / 2**30:.2f} GiB  bpp {bits / n:.6f}  D1 {d1:.4f} dB  "
             f"[{card}]")
-        if dtype == "bfloat16":
-            assert abs(bits / n - VOX10_BF16_BPP) <= 0.005 * VOX10_BF16_BPP, \
-                f"vox10 bf16 bpp {bits / n} vs {VOX10_BF16_BPP}"
-            assert abs(d1 - VOX10_BF16_D1) <= 0.05, \
-                f"vox10 bf16 D1 {d1} vs {VOX10_BF16_D1}"
+        want_bpp, want_d1 = VOX10_GATES[dtype]
+        assert abs(bits / n - want_bpp) <= 0.005 * want_bpp, \
+            f"vox10 {dtype} bpp {bits / n} vs {want_bpp}"
+        assert abs(d1 - want_d1) <= 0.05, f"vox10 {dtype} D1 {d1} vs {want_d1}"
     return results
 
 
@@ -449,13 +453,12 @@ def phase_profile(device, workdir: str):
         for e in kernels[:12]:
             log(f"  {getattr(e, attr) / 1e3:9.3f} ms  x{e.count:<5d} "
                 f"{e.key[:100]}")
-        if dtype == "bfloat16":
-            tiles = empty_tiles(coder, cloud)
-            summary["empty_tiles_bf16_tc"] = tiles
-            for name, t in tiles.items():
-                log(f"empty output tiles of the tc convs, {name}: "
-                    f"{t['empty']} / {t['tiles']} = {100 * t['share']:.2f}% "
-                    f"({100 * t['work_share']:.2f}% of the dense work)")
+        tiles = empty_tiles(coder, cloud)
+        summary[f"empty_tiles_{dtype}_tc"] = tiles
+        for name, t in tiles.items():
+            log(f"empty output tiles of the {dtype} tc convs, {name}: "
+                f"{t['empty']} / {t['tiles']} = {100 * t['share']:.2f}% "
+                f"({100 * t['work_share']:.2f}% of the dense work)")
     return summary
 
 
@@ -518,10 +521,9 @@ def main(argv=None) -> int:
 
         def entry(dtype):
             vox = report.get("vox10", {}).get(dtype, {})
-            launches = vox.get("launches")
             by_bytes = per_frame(dtype, "bytes_ms") >= per_frame(dtype, "ops_ms")
             return {
-                "launches": launches,
+                "launches": vox.get("launches"),
                 "max_abs_err": max(r[dtype]["max_abs_err"] for r in rows),
                 "ms": per_frame(dtype, "ms"),
                 "plain_ms": per_frame(dtype, "plain_ms"),
@@ -529,25 +531,30 @@ def main(argv=None) -> int:
                 "bound_by": "bytes" if by_bytes else "operations",
                 "library_ms": per_frame(dtype, "library_ms"),
                 "tc_launches": vox.get("tc_launches"),
-                "simt_ms": per_frame(dtype, "simt_ms"),
+                # the CUDA-core kernel at the same shapes, off the path
+                "comparison": {
+                    "source": "pcgcv2_torch/csrc/conv3.cu",
+                    "ms": per_frame(dtype, "simt_ms"),
+                    "max_abs_err": max(r[dtype]["simt_max_abs_err"]
+                                       for r in rows),
+                },
             }
 
         # one entry for conv3: times summed over the 64 conv3 calls of one
-        # vox10 encode+decode (f32 headline, bf16 alongside), with the
-        # kernel each dtype routes to
+        # vox10 encode+decode (f32 headline, bf16 alongside), all of them on
+        # conv3_tc.cu
         kernels.append({
             "name": "conv3",
             "route": "cuda",
-            "source": "pcgcv2_torch/csrc/conv3.cu",
+            "source": "pcgcv2_torch/csrc/conv3_tc.cu",
             "replaces": "pcgcv2_tpu/ops/pallas_conv.py:119",
             **entry("float32"),
             "dtype": "float32",
-            "kernel_route": "simt (conv3.cu, CUDA cores)",
+            "kernel_route": "tc (conv3_tc.cu, mma.sync 3xTF32)",
             "bfloat16": {
                 **entry("bfloat16"),
                 "source": "pcgcv2_torch/csrc/conv3_tc.cu",
-                "kernel_route": "tc (conv3_tc.cu, mma.sync) for ci, co >= 4; "
-                                "simt (conv3.cu) for ci or co = 1",
+                "kernel_route": "tc (conv3_tc.cu, mma.sync bf16)",
             },
             "library": "F.conv3d on the assembled halo (dense part only)",
         })

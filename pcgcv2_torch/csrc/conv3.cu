@@ -30,10 +30,10 @@
 //     broadcasts, so shared-memory traffic stays below the FMA rate.
 // The TPU version's banded z-fold weights and ci->16 lane padding are not
 // carried over: they were lane-layout devices and only add zero FLOPs.
-// This kernel takes every f32 call and the ci = 1 / co = 1 convs; bf16
-// calls with ci, co >= 4 run on the tensor cores in conv3_tc.cu
-// (ops/conv3.py::route).  An f32 route on the tensor cores, wgmma and TMA
-// staging are later work.
+// Every call of the main path, f32 and bf16, runs on the tensor cores in
+// conv3_tc.cu (ops/conv3.py::route); this kernel takes only a ci outside
+// {1, 4, 8, 16, 32, 64} and stays as the comparison kernel that
+// chip_smoke.py checks and times beside it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -62,8 +62,9 @@ class BConv3(_Weighted):
         return None
 
     def packed(self):
-        """The cast kernel in mma fragment order where the tensor-core
-        conv3 takes it (bf16, ci and co >= 4), else None."""
+        """The cast kernel in mma fragment order (in f32, split into its
+        TF32 hi and lo parts) where the tensor-core conv3 takes it (ci and
+        co in {1, 4, 8, 16, 32, 64}), else None."""
         self.weights()
         return self._prepared
 

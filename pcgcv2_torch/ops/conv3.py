@@ -6,19 +6,23 @@ plain PyTorch version.
 pcgcv2_tpu/ops/blocks.py::conv3 (:656).  On a CUDA tensor it launches one
 of two kernels (built with nvcc for sm_90a at first use, loaded with
 ctypes) or raises; on a CPU tensor it runs `conv3_plain`.  `route` picks
-the kernel:
+the kernel by shape:
 
-* "tc", csrc/conv3_tc.cu: bf16 with ci, co in {4, 8, 16, 32, 64}.  An
-  implicit GEMM on the tensor cores (mma.sync m16n8k16 / m16n8k8): each
-  CTA stages the 18x18xci input planes of one block row with cp.async and
-  feeds ldmatrix from them; the weights come pre-packed in fragment order
-  (`pack_weight`, done once per layer by models/layers.py).  Output tiles
-  without an occupied slot skip the arithmetic.
-* "simt", csrc/conv3.cu: every f32 call, and ci = 1 or co = 1.  f32 FMA on
-  the CUDA cores, one CTA per (block row, output x-plane).
+* "tc", csrc/conv3_tc.cu: ci and co in {1, 4, 8, 16, 32, 64}, which is
+  every call of the main path, in bf16 and in f32.  An implicit GEMM on
+  the tensor cores (mma.sync: bf16 m16n8k16 / m16n8k8; f32 as three
+  m16n8k8 TF32 products of split operands, 3xTF32, which keeps f32
+  accuracy): each CTA stages the input planes of one block row with
+  cp.async and feeds ldmatrix from them; the weights come pre-packed (and,
+  in f32, pre-split) in fragment order (`pack_weight`, done once per layer
+  by models/layers.py).  Output tiles without an occupied slot skip the
+  arithmetic.
+* "simt", csrc/conv3.cu: any other ci (co must still be one of the six).
+  f32 FMA on the CUDA cores, one CTA per (block row, output x-plane).  It
+  is no longer on the main path and stays as the comparison kernel.
 
 What bounds it on the H100: at the checkpoint's channel pairs the dense
-block conv does 13-860 FLOP per byte moved, so it is bound by arithmetic
+block conv does 6-860 FLOP per byte moved, so it is bound by arithmetic
 except for the co = 1 occupancy heads.  Both kernels fuse bias, bf16
 rounding and the occupancy mask into the epilogue and write rows >= count
 as zeros without arithmetic.  `conv3.launches` counts every launch,
@@ -50,8 +54,7 @@ HS = B.BS + 2  # halo side
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SRCS = (_CSRC / "conv3.cu", _CSRC / "conv3_tc.cu")
 _BUILD_DIR = _CSRC / "build"
-_CO_SUPPORTED = (1, 4, 8, 16, 32, 64)
-_TC_CHANNELS = (4, 8, 16, 32, 64)
+_CHANNELS = (1, 4, 8, 16, 32, 64)  # co of both kernels; ci of "tc"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
@@ -199,40 +202,74 @@ def conv3_plain(
 
 
 def route(ci: int, co: int, dtype) -> str:
-    """The kernel a CUDA call takes: "tc" (csrc/conv3_tc.cu, tensor cores)
-    for bf16 with ci, co in {4, 8, 16, 32, 64}; "simt" (csrc/conv3.cu) for
-    every f32 call and for ci = 1 or co = 1."""
-    if (dtype == torch.bfloat16 and ci in _TC_CHANNELS
-            and co in _TC_CHANNELS):
-        return "tc"
-    return "simt"
+    """The kernel a CUDA call takes, by shape: "tc" (csrc/conv3_tc.cu,
+    tensor cores) for ci and co in {1, 4, 8, 16, 32, 64}, in bf16 and f32;
+    "simt" (csrc/conv3.cu) for any other ci."""
+    del dtype  # both dtypes have the same instances
+    return "tc" if ci in _CHANNELS and co in _CHANNELS else "simt"
 
 
-def _tc_dims(ci: int, co: int) -> tuple:
-    """(ci padded, co padded, mma depth) of the tensor-core kernel."""
+def _tc_dims(ci: int, co: int, dtype) -> tuple:
+    """(ci padded, co padded, mma depth) of the tensor-core kernel: ci and
+    co below 8 are zero-padded to 8; the depth is 8 in f32 (tf32 m16n8k8)
+    and 16 in bf16 (8 for ci <= 8)."""
     cip, cop = max(ci, 8), max(co, 8)
-    return cip, cop, 16 if cip >= 16 else 8
+    ks = 16 if dtype == torch.bfloat16 and cip >= 16 else 8
+    return cip, cop, ks
+
+
+def packed_shape(ci: int, co: int, dtype) -> tuple:
+    """Shape of `pack_weight`'s result for a [3, 3, 3, ci, co] kernel."""
+    cip, cop, ks = _tc_dims(ci, co, dtype)
+    inner = (2, 2) if dtype == torch.float32 else (ks // 8, 2)
+    return (27, cip // ks, cop // 8, 8, 4, *inner)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """f32 `x` -> (hi, lo): hi = x rounded to TF32 (10 mantissa bits,
+    nearest, ties away from zero, as PTX cvt.rna.tf32.f32), lo = x - hi
+    rounded the same way.  hi + lo is x within 2^-22 relative."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
     """[3, 3, 3, ci, co] -> the B operand of conv3_tc.cu in mma fragment
-    order, [27, ci/KS, co/8, 8, 4, KS/8, 2] (tap, k chunk, n tile, g, q, r,
+    order; ci and co below 8 are zero-padded to 8.
+
+    bf16: [27, ci/KS, co/8, 8, 4, KS/8, 2] (tap, k chunk, n tile, g, q, r,
     e): lane 4g+q of n tile nt reads W[tap, KS*kc + 8r + 2q + e, 8nt + g]
-    as KS/8 bf16 pairs.  KS is the mma depth (16, or 8 for ci <= 8); ci
-    and co below 8 are zero-padded to 8."""
+    as KS/8 bf16 pairs, KS the mma depth (16, or 8 for ci <= 8).
+    f32: [27, ci/8, co/8, 8, 4, 2, 2] (tap, k chunk, n tile, g, q, s, r):
+    lane 4g+q reads part s (0 = hi, 1 = lo, `tf32_split`) of
+    W[tap, 8kc + 4r + q, 8nt + g], the two B registers of tf32 m16n8k8 for
+    each part."""
     ci, co = weight.shape[3], weight.shape[4]
-    cip, cop, ks = _tc_dims(ci, co)
+    cip, cop, ks = _tc_dims(ci, co, weight.dtype)
     w = torch.nn.functional.pad(weight.reshape(27, ci, co),
                                 (0, cop - co, 0, cip - ci))
+    if weight.dtype == torch.float32:
+        w = torch.stack(tf32_split(w))  # [s, 27, cip, cop]
+        w = w.reshape(2, 27, cip // 8, 2, 4, cop // 8, 8)
+        return w.permute(1, 2, 5, 6, 4, 0, 3).contiguous()
     w = w.reshape(27, cip // ks, ks // 8, 4, 2, cop // 8, 8)
     return w.permute(0, 1, 5, 6, 3, 2, 4).contiguous()
 
 
 def unpack_weight(packed: torch.Tensor, ci: int, co: int) -> torch.Tensor:
-    """Inverse of `pack_weight`: the [3, 3, 3, ci, co] kernel."""
-    cip, cop, _ = _tc_dims(ci, co)
-    w = packed.permute(0, 1, 5, 4, 6, 2, 3).reshape(27, cip, cop)
-    return w[:, :ci, :co].reshape(3, 3, 3, ci, co)
+    """Inverse of `pack_weight`: the [3, 3, 3, ci, co] kernel (in f32, the
+    sum hi + lo of its two parts)."""
+    cip, cop, _ = _tc_dims(ci, co, packed.dtype)
+    if packed.dtype == torch.float32:
+        w = packed.sum(dim=5).permute(0, 1, 5, 4, 2, 3)
+    else:
+        w = packed.permute(0, 1, 5, 4, 6, 2, 3)
+    return w.reshape(27, cip, cop)[:, :ci, :co].reshape(3, 3, 3, ci, co)
 
 
 def _check(bg: B.BlockGrid, nbrs, weight, bias, cd, packed, kernel) -> None:
@@ -247,21 +284,18 @@ def _check(bg: B.BlockGrid, nbrs, weight, bias, cd, packed, kernel) -> None:
         raise ValueError(
             f"weight {tuple(weight.shape)} does not match ci={ci}")
     co = weight.shape[4]
-    if co not in _CO_SUPPORTED:
+    if co not in _CHANNELS:
         raise NotImplementedError(
             f"conv3 kernel has no instance for co={co}; "
-            f"supported: {_CO_SUPPORTED}")
+            f"supported: {_CHANNELS}")
     if kernel == "tc":
-        if cd != torch.bfloat16 or ci not in _TC_CHANNELS \
-                or co not in _TC_CHANNELS:
+        if route(ci, co, cd) != "tc":
             raise NotImplementedError(
-                f"the tensor-core conv3 has no instance for ci={ci} co={co} "
-                f"{cd}")
+                f"the tensor-core conv3 has no instance for ci={ci} co={co}")
         if packed is None:
             raise ValueError("the tensor-core conv3 needs the weight packed "
                              "by pack_weight (the layers pack it once)")
-        cip, cop, ks = _tc_dims(ci, co)
-        shape = (27, cip // ks, cop // 8, 8, 4, ks // 8, 2)
+        shape = packed_shape(ci, co, cd)
         if tuple(packed.shape) != shape:
             raise ValueError(f"packed weight {tuple(packed.shape)} is not "
                              f"pack_weight's {shape}")

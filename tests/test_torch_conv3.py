@@ -1,7 +1,9 @@
 """The port's conv3 (plain path on the CPU) against the JAX package's
 blocks.conv3 and the Pallas kernel (interpret mode), f32, on the res-64
-sphere grid of tests/test_pallas_conv.py.  The CUDA kernel itself is
-checked against conv3_plain on the card by chip_smoke.py."""
+sphere grid of tests/test_pallas_conv.py, with the weight packing and the
+split-TF32 arithmetic of the tensor-core kernel.  The CUDA kernels
+themselves are checked against conv3_plain on the card by
+chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -142,51 +144,116 @@ def test_layer_casts_weights_once_per_dtype():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ci,co", PAIRS)
 def test_route(ci, co, dtype):
-    """bf16 with ci, co >= 4 runs on the tensor cores; f32 and the ci = 1 /
-    co = 1 convs stay on the CUDA-core kernel."""
-    want = ("tc" if dtype == torch.bfloat16 and min(ci, co) >= 4
-            else "simt")
-    assert TK.route(ci, co, dtype) == want
+    """Every (ci, co) of the main path runs on the tensor cores, in f32 and
+    bf16; a ci outside {1, 4, 8, 16, 32, 64} takes the CUDA-core kernel."""
+    assert TK.route(ci, co, dtype) == "tc"
+    assert TK.route(ci + 2, co, dtype) == "simt"
 
 
-TC_PAIRS = [(ci, co) for ci, co in PAIRS if min(ci, co) >= 4]
+def _pack_cases(pairs):
+    """(ci, co, dtype) cases: bf16 under the plain "ci-co" id, f32 under
+    "f32-ci-co"."""
+    return ([pytest.param(ci, co, torch.bfloat16, id=f"{ci}-{co}")
+             for ci, co in pairs]
+            + [pytest.param(ci, co, torch.float32, id=f"f32-{ci}-{co}")
+               for ci, co in pairs])
 
 
-@pytest.mark.parametrize("ci,co", TC_PAIRS)
-def test_pack_weight_roundtrip(ci, co):
-    w = torch.from_numpy(_weights(ci, co)[0]).to(torch.bfloat16)
+@pytest.mark.parametrize("ci,co,dtype", _pack_cases(PAIRS))
+def test_pack_weight_roundtrip(ci, co, dtype):
+    w = torch.from_numpy(_weights(ci, co)[0]).to(dtype)
     packed = TK.pack_weight(w)
-    assert packed.is_contiguous() and packed.dtype == torch.bfloat16
-    torch.testing.assert_close(TK.unpack_weight(packed, ci, co), w,
-                               rtol=0, atol=0)
+    assert packed.is_contiguous() and packed.dtype == dtype
+    assert tuple(packed.shape) == TK.packed_shape(ci, co, dtype)
     # ci and co below 8 are padded with zeros, nothing else is added
-    assert packed.numel() == 27 * max(ci, 8) * max(co, 8)
-    assert int((packed != 0).sum()) == int((w != 0).sum())
+    parts = 2 if dtype == torch.float32 else 1
+    assert packed.numel() == parts * 27 * max(ci, 8) * max(co, 8)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(TK.unpack_weight(packed, ci, co), w,
+                                   rtol=0, atol=0)
+        assert int((packed != 0).sum()) == int((w != 0).sum())
+        return
+    # f32: hi (part 0) is a TF32 value, its low 13 mantissa bits zero, and
+    # hi + lo gives the weight back within 2^-21 relative
+    hi = packed[..., 0, :]
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    torch.testing.assert_close(TK.unpack_weight(packed, ci, co), w,
+                               rtol=2.0 ** -21, atol=0)
+    assert int((hi != 0).sum()) == int((w != 0).sum())
 
 
-@pytest.mark.parametrize("ci,co", [(8, 16), (32, 8)])
-def test_pack_weight_fragment_order(ci, co):
-    """Lane 4g+q of n tile nt holds W[tap, KS*kc + 8r + 2q + e, 8nt + g],
-    the B fragment of mma.sync m16n8k{KS} (KS = 8 for ci = 8, else 16)."""
-    w = torch.arange(27 * ci * co, dtype=torch.float32).reshape(
-        3, 3, 3, ci, co)
+@pytest.mark.parametrize("ci,co,dtype", _pack_cases([(8, 16), (32, 8)]))
+def test_pack_weight_fragment_order(ci, co, dtype):
+    """bf16: lane 4g+q of n tile nt holds W[tap, KS*kc + 8r + 2q + e,
+    8nt + g], the B fragment of mma.sync m16n8k{KS} (KS = 8 for ci = 8,
+    else 16).  f32: lane 4g+q holds part s (hi, lo) of
+    W[tap, 8kc + 4r + q, 8nt + g], the B fragment of tf32 m16n8k8."""
+    g_ = torch.Generator().manual_seed(ci * co)
+    w = torch.randn(3, 3, 3, ci, co, generator=g_).to(dtype)
     packed = TK.pack_weight(w)
-    ks = 8 if ci == 8 else 16
+    f32 = dtype == torch.float32
+    ks = 8 if ci == 8 or f32 else 16
     wf = w.reshape(27, ci, co)
+    parts = torch.stack(TK.tf32_split(wf)) if f32 else None
     rng = np.random.RandomState(0)
     for _ in range(50):
         tap, kc, nt = (rng.randint(27), rng.randint(ci // ks),
                        rng.randint(co // 8))
-        g, q, r, e = (rng.randint(8), rng.randint(4), rng.randint(ks // 8),
+        g, q, r, e = (rng.randint(8), rng.randint(4), rng.randint(2),
                       rng.randint(2))
-        assert (packed[tap, kc, nt, g, q, r, e]
-                == wf[tap, ks * kc + 8 * r + 2 * q + e, 8 * nt + g])
+        if f32:  # e is the part s
+            assert (packed[tap, kc, nt, g, q, e, r]
+                    == parts[e, tap, 8 * kc + 4 * r + q, 8 * nt + g])
+        else:
+            r %= ks // 8
+            assert (packed[tap, kc, nt, g, q, r, e]
+                    == wf[tap, ks * kc + 8 * r + 2 * q + e, 8 * nt + g])
+
+
+def _conv3_3xtf32(tbg, nbrs, w, b):
+    """The f32 route's arithmetic in plain torch: halo and weights split
+    into TF32 hi and lo parts, lo.hi + hi.lo + hi.hi per tap accumulated
+    in f32, bias added in f32, re-masked."""
+    ci = tbg.channels
+    hh, hl = TK.tf32_split(TK.halo(tbg.feats, nbrs))
+    wh, wl = TK.tf32_split(w)
+    acc = torch.zeros(tbg.nb_cap * TB.VOL, w.shape[-1])
+    for dx in range(3):
+        for dy in range(3):
+            for dz in range(3):
+                win = [p[:, dx:dx + TB.BS, dy:dy + TB.BS, dz:dz + TB.BS]
+                       .reshape(-1, ci) for p in (hh, hl)]
+                acc += win[1] @ wh[dx, dy, dz]
+                acc += win[0] @ wl[dx, dy, dz]
+                acc += win[0] @ wh[dx, dy, dz]
+    return tbg.with_feats((acc + b).reshape(tbg.nb_cap, TB.VOL, -1))
+
+
+@pytest.mark.parametrize("ci,co", [(1, 16), (16, 1), (8, 16), (32, 8)])
+def test_split_tf32_product_matches_f32(ci, co):
+    """The 3xTF32 arithmetic of the f32 tensor-core route keeps f32
+    accuracy: within 1e-5 of conv3_plain in f32 and of the JAX
+    blocks.conv3 at highest precision."""
+    jbg, tbg = _grids(ci, seed=5)
+    w, b = _weights(ci, co, seed=6)
+    tn = TB.neighbor_rows(tbg)
+    got = _conv3_3xtf32(tbg, tn, torch.from_numpy(w), torch.from_numpy(b))
+    plain = TK.conv3_plain(tbg, tn, torch.from_numpy(w), torch.from_numpy(b),
+                           compute_dtype=torch.float32)
+    ref = B.conv3(jbg, B.neighbor_rows(jbg), jnp.asarray(w), jnp.asarray(b),
+                  compute_dtype=jnp.float32)
+    np.testing.assert_allclose(got.feats.numpy(), plain.feats.numpy(),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.feats.numpy(), np.asarray(ref.feats),
+                               rtol=TOL, atol=TOL)
+    # one TF32 pass (hi.hi only) would not hold the tolerance
+    assert float(got.feats.abs().max()) > 1.0
 
 
 def test_layer_packs_once_per_dtype():
-    """BConv3 packs its bf16 kernel for the tensor-core route once, under
-    the cast's key: again only after a parameter is written; not in f32 and
-    not for a co = 1 head."""
+    """BConv3 packs its kernel for the tensor-core route once per dtype,
+    under the cast's key, and again only after a parameter is written; a
+    co = 1 head is packed too, and in f32 the pack holds the TF32 parts."""
     from pcgcv2_torch.models.layers import BConv3
 
     layer, head = BConv3(16, 32), BConv3(16, 1)
@@ -197,13 +264,18 @@ def test_layer_packs_once_per_dtype():
         assert packed is not None and layer.packed() is packed
         torch.testing.assert_close(TK.unpack_weight(packed, 16, 32), k,
                                    rtol=0, atol=0)
-        assert head.packed() is None
+        assert head.packed().shape == TK.packed_shape(16, 1, torch.bfloat16)
         with torch.no_grad():
             layer.kernel.fill_(0.5)
         packed2 = layer.packed()
         assert packed2 is not packed and bool((packed2 == 0.5).all())
         TB.set_compute_dtype("float32")
-        assert layer.packed() is None
+        packed32 = layer.packed()
+        assert packed32.dtype == torch.float32
+        assert packed32.shape == TK.packed_shape(16, 32, torch.float32)
+        # 0.5 is a TF32 value: hi holds it, lo is zero
+        assert bool((packed32[..., 0, :] == 0.5).all())
+        assert bool((packed32[..., 1, :] == 0).all())
     finally:
         TB.set_compute_dtype("float32")
 
