@@ -21,6 +21,19 @@ Phases (each prints its own lines; any failure exits non-zero):
      OUT_DIR), and the share of empty output tiles of the tensor-core
      convs on this frame per dtype (CTA slabs counted as 4 x-planes of 16
      y rows; the f32 ci = 64 CTAs cover half of that).
+  6. the streamed decode (phase 2 also checks conv3 at its vox11 slab
+     shapes):
+     a. the vox10 frame decoded in 8 slabs against the monolithic decode,
+        bf16 and f32: same count, point sets within 0.01%, the vox10
+        gates, and the decode times (best of 3, in turns) with their ratio;
+     b. a vox11-class frame (torus_cloud(1390, density=4, seed=11),
+        3,546,032 voxels at res 2048), whole: bf16 best of 3 after a
+        warm-up, f32 one rep; decoded count, 141 conv3 launches all on the
+        tensor cores, peak device memory of encode and of decode, bpp and
+        D1 gates, and (bf16) the monolithic decode through model.decode_fn
+        beside it;
+     c. pcgcv2_torch.cli.test.run_sweep on the golden frame: the CSV row's
+        count, bpp and D1 against the golden triple.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a CUDA device or without the pcgcv2_torch
@@ -60,11 +73,26 @@ PER_FRAME = {
     (512, 64, 64): 2, (512, 64, 1): 1, (512, 32, 8): 4,
     (512, 8, 16): 3, (512, 8, 8): 3,
 }
+# conv3 shapes of the final decoder stage of a vox11 frame, run per x-slab
+# by the streamed decode: torus_cloud(1390, density=4, seed=11) at res 2048
+# gives the plan nb (21504, 5632, 1536, 512), so each of the 8 slabs runs
+# stage 2 at max(256, up_cap(2) * 2 // 8) = 5376 candidate blocks (phase 6
+# checks the number).  Per slab: conv2 16->16, 3 IRN blocks (16->4, 4->8,
+# 4->4 each) and the cls head 16->1: 11 launches, 88 per frame.
+VOX11_SLAB_CAP = 5376
+PER_VOX11_SLABS = {
+    (VOX11_SLAB_CAP, 16, 16): 8, (VOX11_SLAB_CAP, 16, 4): 24,
+    (VOX11_SLAB_CAP, 4, 8): 24, (VOX11_SLAB_CAP, 4, 4): 24,
+    (VOX11_SLAB_CAP, 16, 1): 8,
+}
 TOL_F32 = 1e-4      # max abs error, kernel vs plain, f32
 TOL_BF16_REL = 2e-2  # max abs error / max |ref|, bf16 kernel vs f32 plain
 # vox10 readings of the CUDA-core kernel (chip_smoke.py on an H100,
 # 700 W), bf16 and f32: the tensor-core route must keep the codec's result
 VOX10_GATES = {"bfloat16": (0.492671, 69.4159), "float32": (0.493043, 69.4005)}
+# vox11-class frame (phase 6b), ckpts/r4: the first readings of the streamed
+# decode (chip_smoke.py on an H100, 700 W), held with the vox10 tolerances
+VOX11_GATES = {"bfloat16": (0.494696, 74.9098), "float32": (0.495046, 74.9102)}
 KERNEL_REPS = 10     # timed launches per kernel shape (median)
 VOX10_REPS = 3       # timed vox10 encode+decode reps per dtype (best)
 
@@ -168,19 +196,24 @@ def phase_kernels(device):
 
     log("== phase 2: conv3 CUDA kernels vs conv3_plain ==")
     rows = []
-    grids = {}
-    for nb_cap in sorted({k[0] for k in PER_FRAME}, reverse=True):
-        grids[nb_cap] = random_grid(nb_cap, 64, seed=nb_cap, device=device)
+    shapes = [("vox10", k, n) for k, n in PER_FRAME.items()]
+    shapes += [("vox11_slab", k, n) for k, n in PER_VOX11_SLABS.items()]
     gen = torch.Generator(device=device).manual_seed(0)
-    for (nb_cap, ci, co), per_frame in PER_FRAME.items():
+    grids = {}
+    for path, (nb_cap, ci, co), per_frame in shapes:
+        if nb_cap not in grids:
+            grids.clear()
+            torch.cuda.empty_cache()
+            grids[nb_cap] = random_grid(nb_cap, 64, seed=nb_cap,
+                                        device=device)
         base = grids[nb_cap]
         nbrs = B.neighbor_rows(base)
         feats32 = base.feats[:, :, :ci].contiguous()
         w = torch.randn(3, 3, 3, ci, co, device=device, generator=gen)
         w *= math.sqrt(2.0 / (27 * ci))
         b = 0.1 * torch.randn(co, device=device, generator=gen)
-        row = {"nb_cap": nb_cap, "live_rows": int(base.count), "ci": ci,
-               "co": co, "per_frame": per_frame}
+        row = {"path": path, "nb_cap": nb_cap, "live_rows": int(base.count),
+               "ci": ci, "co": co, "per_frame": per_frame}
         for dtype in ("float32", "bfloat16"):
             cd = B._DTYPES[dtype]
             bg = base.replace(feats=feats32.to(cd))
@@ -223,8 +256,9 @@ def phase_kernels(device):
                 "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                 "dense_tflops": dense_flop / (ms * 1e-3) / 1e12,
             }
-            log(f"conv3 nb={nb_cap:<5d} ci={ci:<3d} co={co:<3d} {dtype:<8s} "
-                f"x{per_frame}/frame  err={err:.3g} (|ref|max {scale:.3g}) "
+            log(f"conv3 {path:<10s} nb={nb_cap:<5d} ci={ci:<3d} co={co:<3d} "
+                f"{dtype:<8s} x{per_frame}/frame  err={err:.3g} "
+                f"(|ref|max {scale:.3g}) "
                 f"{'OK' if ok else 'FAIL'}  {kernel} {ms:.4f} ms  "
                 f"(conv3.cu {simt_ms:.4f} ms, err {simt_err:.3g})  "
                 f"plain {plain_ms:.4f} ms  F.conv3d(halo) {lib_ms:.4f} ms  "
@@ -236,16 +270,26 @@ def phase_kernels(device):
                     f"ci={ci} co={co} {dtype}: max abs err {kernel} {err}, "
                     f"conv3.cu {simt_err} (tolerance {tol})")
         rows.append(row)
-        torch.cuda.empty_cache()
-    for dtype in ("float32", "bfloat16"):
-        tot = {k: sum(r["per_frame"] * r[dtype][k] for r in rows)
-               for k in ("ms", "simt_ms", "plain_ms", "library_ms",
-                         "bound_ms")}
-        log(f"conv3 per-frame totals {dtype}: kernel {tot['ms']:.3f} ms  "
-            f"(conv3.cu alone {tot['simt_ms']:.3f} ms)  "
-            f"plain {tot['plain_ms']:.3f} ms  F.conv3d(halo) "
-            f"{tot['library_ms']:.3f} ms  bound {tot['bound_ms']:.4f} ms")
+    grids.clear()
+    torch.cuda.empty_cache()
+    for path in ("vox10", "vox11_slab"):
+        for dtype in ("float32", "bfloat16"):
+            tot = {k: per_frame_sum(rows, path, dtype, k)
+                   for k in ("ms", "simt_ms", "plain_ms", "library_ms",
+                             "bound_ms")}
+            log(f"conv3 per-frame totals {path} {dtype}: kernel "
+                f"{tot['ms']:.3f} ms  (conv3.cu alone {tot['simt_ms']:.3f} "
+                f"ms)  plain {tot['plain_ms']:.3f} ms  F.conv3d(halo) "
+                f"{tot['library_ms']:.3f} ms  bound {tot['bound_ms']:.4f} ms")
     return rows
+
+
+def per_frame_sum(rows, path: str, dtype: str, key: str) -> float:
+    """A phase-2 column summed over one path's shapes, each weighted by its
+    launches per frame (vox10: the 64 of an encode + decode; vox11_slab:
+    the 88 of the 8 slabs of a vox11 frame's final decoder stage)."""
+    return sum(r["per_frame"] * r[dtype][key] for r in rows
+               if r["path"] == path)
 
 
 # ---------------------------------------------------------------------------
@@ -462,9 +506,250 @@ def phase_profile(device, workdir: str):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the streamed decode and the rate-sweep CLI
+# ---------------------------------------------------------------------------
+
+
+def point_keys(pts):
+    """One int64 key per (x, y, z) row (coords < 2^21)."""
+    import numpy as np
+
+    c = np.asarray(pts, dtype=np.int64)
+    return (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
+
+
+def sym_diff(a, b) -> int:
+    """Points in exactly one of the two sets."""
+    import numpy as np
+
+    return len(np.setxor1d(point_keys(a), point_keys(b)))
+
+
+def timed(fn):
+    """(seconds, result) of fn(), the clock stopped after a device sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def peak_of(fn):
+    """(seconds, peak device bytes, result) of fn(), the peak counted from
+    a reset just before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sec, out = timed(fn)
+    return sec, torch.cuda.max_memory_allocated(), out
+
+
+def counted(fn):
+    """(result, conv3 launches, tensor-core launches) of fn(), the counts
+    set to 0 just before it and read just after."""
+    from pcgcv2_torch.ops import conv3 as K
+
+    K.conv3.launches = K.conv3.tc_launches = 0
+    out = fn()
+    return out, K.conv3.launches, K.conv3.tc_launches
+
+
+def monolithic_decode(coder, postfix: str):
+    """The decode of `coder`'s stream through model.decode_fn on the
+    exact-fit plan, whatever the plan's res (Coder.decode streams at res
+    >= 2048): the streamed decode's comparison."""
+    import numpy as np
+    import torch
+
+    from pcgcv2_torch.codec.coder import canonical_order
+    from pcgcv2_torch.ops import blocks as B
+
+    coords = coder.coordinate_coder.decode(postfix)
+    coords = coords[canonical_order(coords)]
+    feats = coder.feature_coder.decode(postfix)
+    with open(coder.filename + postfix + "_num_points.bin", "rb") as f:
+        head = np.frombuffer(f.read(28), dtype=np.int32)
+    plan = coder._plan_from_counts(head[3:7])
+    dev = coder.device
+    y = B.blockify(coder._rows(coords * 8),
+                   torch.from_numpy(feats).to(dev, B.COMPUTE_DTYPE),
+                   torch.ones(len(coords), dtype=torch.bool, device=dev),
+                   plan.nb[3], stride=8, res=plan.res // 8, num_batches=1)
+    nums = torch.tensor(head[:3].tolist(), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        out = coder.model.decode_fn(y, [nums[0:1], nums[1:2], nums[2:3]],
+                                    plan)
+        assert int(out.dropped) == 0, "monolithic decode overflowed"
+        bc, bits = B.pack_occupancy(out)
+    return B.host_extract(bc.cpu().numpy(), bits.cpu().numpy())
+
+
+def phase_streamed(device, workdir: str, card: str):
+    import numpy as np
+    import torch
+
+    from pcgcv2_torch.checkpoint import load_params
+    from pcgcv2_torch.cli.test import run_sweep
+    from pcgcv2_torch.codec.coder import Coder, block_counts
+    from pcgcv2_torch.config import BlockPlan
+    from pcgcv2_torch.data.io import write_ply_ascii_geo
+    from pcgcv2_torch.data.synthetic import torus_cloud
+    from pcgcv2_torch.eval.metrics import pc_metrics
+    from pcgcv2_torch.ops import blocks as B
+
+    params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
+    result = {}
+
+    # (a) vox10 frame, 8 slabs against the monolithic decode
+    log("== phase 6a: vox10 streamed decode (8 slabs) vs monolithic ==")
+    cloud = torus_cloud(684, density=4.0, seed=0)
+    n = len(cloud)
+    for dtype in ("bfloat16", "float32"):
+        B.set_compute_dtype(dtype)
+        coder = Coder(params, os.path.join(workdir, f"s10_{dtype}"),
+                      res=1024, device=device)
+        coder.encode(cloud)
+        bits = sum(8 * v for v in coder.bitstream_bytes().values())
+        times = {0: [], 8: []}
+        runs = {}
+        for rnd in range(4):  # round 0 warms both up; then best of 3
+            for slabs in (0, 8):  # in turns: monolithic, streamed
+                coder.streamed_slabs = slabs
+                (sec, dec), launches, tc = counted(
+                    lambda: timed(coder.decode))
+                if rnd:
+                    times[slabs].append(sec)
+                runs[slabs] = (dec, launches, tc)
+        best = {k: min(v) for k, v in times.items()}
+        mono = runs[0][0]
+        streamed, s_launches, s_tc = runs[8]
+        diff = sym_diff(streamed, mono)
+        d1 = pc_metrics(cloud, np.unique(streamed, axis=0), 1024,
+                        with_d2=False)["mseF,PSNR (p2point)"]
+        ratio = best[8] / best[0]
+        log(f"vox10 {dtype}: streamed decoded {len(streamed)} / {n}, "
+            f"monolithic {len(mono)}; symmetric difference {diff} points "
+            f"({100 * diff / n:.4f}%)  bpp {bits / n:.6f}  D1 {d1:.4f} dB  "
+            f"decode best of 3: monolithic {best[0]:.4f} s, streamed "
+            f"{best[8]:.4f} s, ratio {ratio:.3f}  conv3 launches of the "
+            f"streamed decode {s_launches} ({s_tc} tensor-core)  [{card}]")
+        assert len(streamed) == len(mono) == n, "vox10 streamed count"
+        assert diff <= 1e-4 * n, f"vox10 streamed differs by {diff} points"
+        want_bpp, want_d1 = VOX10_GATES[dtype]
+        assert abs(bits / n - want_bpp) <= 0.005 * want_bpp, "vox10 bpp"
+        assert abs(d1 - want_d1) <= 0.05, f"vox10 streamed D1 {d1}"
+        assert s_launches == s_tc == 22 + 8 * 11, \
+            f"{s_launches} conv3 launches ({s_tc} tc), want 110, all tc"
+        result[f"vox10_{dtype}"] = {
+            "decoded": len(streamed), "sym_diff": diff, "bpp": bits / n,
+            "d1_psnr": d1, "mono_dec_s": best[0], "streamed_dec_s": best[8],
+            "ratio": ratio, "launches": s_launches, "tc_launches": s_tc,
+        }
+        del coder
+        torch.cuda.empty_cache()
+
+    # (b) vox11-class frame, whole (scaling factor 1), streamed by default
+    log("== phase 6b: vox11-class frame (res 2048), streamed decode ==")
+    cloud = torus_cloud(1390, density=4.0, seed=11)
+    n = len(cloud)
+    plan = BlockPlan.for_frame(2048, block_counts(cloud))
+    slab_cap = max(256, plan.up_cap(2) * 2 // 8)
+    log(f"vox11 frame: {n} voxels, plan nb {plan.nb}, slab candidate cap "
+        f"{slab_cap}")
+    assert slab_cap == VOX11_SLAB_CAP, "phase 2's slab shapes are stale"
+    for dtype, reps in (("bfloat16", 3), ("float32", 1)):
+        B.set_compute_dtype(dtype)
+        coder = Coder(params, os.path.join(workdir, f"vox11_{dtype}"),
+                      res=2048, device=device)
+        if reps > 1:
+            run_frame(coder, cloud, "_w")
+        enc = []
+        dec = []
+        for rep in range(reps):
+            (enc_s, enc_peak, _), launches_e, tc_e = counted(
+                lambda: peak_of(lambda: coder.encode(cloud, f"_{rep}")))
+            (dec_s, dec_peak, out), launches_d, tc_d = counted(
+                lambda: peak_of(lambda: coder.decode(postfix=f"_{rep}")))
+            launches, tc = launches_e + launches_d, tc_e + tc_d
+            log(f"vox11 {dtype} rep {rep}: enc {enc_s:.4f} s (peak "
+                f"{enc_peak / 2**30:.2f} GiB)  dec {dec_s:.4f} s (peak "
+                f"{dec_peak / 2**30:.2f} GiB)  decoded {len(out)} / {n}  "
+                f"conv3 launches {launches} ({tc} tensor-core)  [{card}]")
+            assert len(out) == n, f"vox11 decoded {len(out)} of {n}"
+            assert launches == tc == 141, \
+                f"{launches} conv3 launches ({tc} tc), want 141, all tc"
+            enc.append((enc_s, enc_peak))
+            dec.append((dec_s, dec_peak))
+        bits = sum(8 * v for v in coder.bitstream_bytes("_0").values())
+        d1 = pc_metrics(cloud, np.unique(out, axis=0), 2048,
+                        with_d2=False)["mseF,PSNR (p2point)"]
+        row = {
+            "n_points": n, "decoded": len(out), "reps": reps,
+            "enc_s": min(e[0] for e in enc), "dec_s": min(d[0] for d in dec),
+            "enc_peak_bytes": max(e[1] for e in enc),
+            "dec_peak_bytes": max(d[1] for d in dec),
+            "bpp": bits / n, "d1_psnr": d1, "launches": launches,
+            "tc_launches": tc,
+        }
+        if dtype == "bfloat16":
+            torch.cuda.empty_cache()
+            mono_s, mono_peak, mono = peak_of(
+                lambda: monolithic_decode(coder, f"_{reps - 1}"))
+            diff = sym_diff(out, mono)
+            row.update(mono_dec_s=mono_s, mono_dec_peak_bytes=mono_peak,
+                       mono_decoded=len(mono), sym_diff=diff)
+            log(f"vox11 {dtype} monolithic decode (model.decode_fn): "
+                f"{mono_s:.4f} s, peak {mono_peak / 2**30:.2f} GiB, "
+                f"decoded {len(mono)}; symmetric difference to the streamed "
+                f"set {diff} points ({100 * diff / n:.4f}%)  [{card}]")
+            assert len(mono) == n and diff <= 1e-4 * n, "vox11 monolithic"
+        log(f"vox11 {dtype}: best enc {row['enc_s']:.4f} s + dec "
+            f"{row['dec_s']:.4f} s (of {reps})  peak enc "
+            f"{row['enc_peak_bytes'] / 2**30:.2f} GiB, dec "
+            f"{row['dec_peak_bytes'] / 2**30:.2f} GiB  bpp {bits / n:.6f}  "
+            f"D1 {d1:.4f} dB  [{card}]")
+        want_bpp, want_d1 = VOX11_GATES[dtype]
+        assert abs(bits / n - want_bpp) <= 0.005 * want_bpp, \
+            f"vox11 {dtype} bpp {bits / n} vs {want_bpp}"
+        assert abs(d1 - want_d1) <= 0.05, f"vox11 {dtype} D1 {d1} vs {want_d1}"
+        result[f"vox11_{dtype}"] = row
+        del coder
+        torch.cuda.empty_cache()
+
+    # (c) the rate-sweep CLI on the golden frame
+    log("== phase 6c: pcgcv2_torch.cli.test.run_sweep, golden frame ==")
+    B.set_compute_dtype("float32")
+    exp = json.loads((ROOT / "tests/golden/expected.json").read_text())
+    cloud = torus_cloud(170, density=2.0, seed=42)
+    ply = os.path.join(workdir, "golden_torus.ply")
+    write_ply_ascii_geo(ply, cloud)
+    (rows, launches, tc) = counted(lambda: run_sweep(
+        ply, [str(ROOT / "tests/golden/golden.ckpt")],
+        os.path.join(workdir, "sweep_out"), os.path.join(workdir, "sweep"),
+        res=256, device=device))
+    (row,) = rows
+    d1 = row["mseF,PSNR (p2point)"]
+    log(f"cli.test golden row: output {row['num_points(output)']} points  "
+        f"bpp {row['bpp']}  D1 {d1:.4f} dB  time(enc) {row['time(enc)']} s  "
+        f"time(dec) {row['time(dec)']} s  conv3 launches {launches} ({tc} "
+        f"tensor-core, warm-up included)")
+    assert row["num_points(output)"] == exp["n_points"], "cli output count"
+    assert abs(row["bpp"] - 0.534) <= 0.005 * 0.534, "cli bpp"
+    assert abs(d1 - exp["d1_psnr"]) <= 0.05, "cli D1"
+    assert launches == tc == 128, f"cli {launches} launches ({tc} tc)"
+    result["cli"] = {k: row[k] for k in (
+        "num_points(output)", "bpp", "mseF,PSNR (p2point)", "time(enc)",
+        "time(dec)")}
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5")
+    p.add_argument("--phases", default="1,2,3,4,5,6")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -499,16 +784,20 @@ def main(argv=None) -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}  "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    report = {"card": card}
+    report = {"card": card, "phase_s": {}}
     with tempfile.TemporaryDirectory() as workdir:
-        if 2 in phases:
-            report["conv3_shapes"] = phase_kernels(device)
-        if 3 in phases:
-            report["golden"] = phase_golden(device, workdir)
-        if 4 in phases:
-            report["vox10"] = phase_vox10(device, workdir, card)
-        if 5 in phases:
-            report["profile"] = phase_profile(device, workdir)
+        for n, key, run in (
+                (2, "conv3_shapes", lambda: phase_kernels(device)),
+                (3, "golden", lambda: phase_golden(device, workdir)),
+                (4, "vox10", lambda: phase_vox10(device, workdir, card)),
+                (5, "profile", lambda: phase_profile(device, workdir)),
+                (6, "streamed", lambda: phase_streamed(device, workdir,
+                                                       card))):
+            if n in phases:
+                t = time.perf_counter()
+                report[key] = run()
+                report["phase_s"][n] = time.perf_counter() - t
+                log(f"phase {n}: {report['phase_s'][n]:.1f} s")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -516,11 +805,12 @@ def main(argv=None) -> int:
     if "conv3_shapes" in report:
         rows = report["conv3_shapes"]
 
-        def per_frame(dtype, key):
-            return sum(r["per_frame"] * r[dtype][key] for r in rows)
+        def per_frame(dtype, key, path="vox10"):
+            return per_frame_sum(rows, path, dtype, key)
 
         def entry(dtype):
             vox = report.get("vox10", {}).get(dtype, {})
+            vox11 = report.get("streamed", {}).get(f"vox11_{dtype}", {})
             by_bytes = per_frame(dtype, "bytes_ms") >= per_frame(dtype, "ops_ms")
             return {
                 "launches": vox.get("launches"),
@@ -531,6 +821,17 @@ def main(argv=None) -> int:
                 "bound_by": "bytes" if by_bytes else "operations",
                 "library_ms": per_frame(dtype, "library_ms"),
                 "tc_launches": vox.get("tc_launches"),
+                # the streamed vox11 path: launches of one encode + decode,
+                # and the 88 launches of its 8 slabs at the slab cap
+                "vox11_streamed": {
+                    "launches": vox11.get("launches"),
+                    "tc_launches": vox11.get("tc_launches"),
+                    "slab_cap": VOX11_SLAB_CAP,
+                    **{k: per_frame(dtype, k, "vox11_slab") for k in (
+                        "ms", "plain_ms", "bound_ms", "library_ms")},
+                    "max_abs_err": max(r[dtype]["max_abs_err"] for r in rows
+                                       if r["path"] == "vox11_slab"),
+                },
                 # the CUDA-core kernel at the same shapes, off the path
                 "comparison": {
                     "source": "pcgcv2_torch/csrc/conv3.cu",
@@ -542,7 +843,7 @@ def main(argv=None) -> int:
 
         # one entry for conv3: times summed over the 64 conv3 calls of one
         # vox10 encode+decode (f32 headline, bf16 alongside), all of them on
-        # conv3_tc.cu
+        # conv3_tc.cu; the vox11 streamed path's beside them
         kernels.append({
             "name": "conv3",
             "route": "cuda",

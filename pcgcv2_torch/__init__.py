@@ -2,10 +2,12 @@
 
 A second package beside `pcgcv2_tpu` (which stays the reference).  It runs
 the single-frame codec (`codec.coder.Coder`: encode -> 4-file bitstream ->
-decode) on an NVIDIA Hopper card, with the one TPU kernel of the JAX
-package (the fused halo + 3^3 convolution, `pcgcv2_tpu/ops/pallas_conv.py`)
-rewritten by hand in CUDA C++: `csrc/conv3_tc.cu` on the tensor cores for
-bf16 with ci, co >= 4, `csrc/conv3.cu` on the CUDA cores for the rest.
+decode, streamed over x-slabs for frames at res >= 2048) and the rate-sweep
+CLI (`cli.test`) on an NVIDIA Hopper card, with the one TPU kernel of the
+JAX package (the fused halo + 3^3 convolution,
+`pcgcv2_tpu/ops/pallas_conv.py`) rewritten by hand in CUDA C++:
+`csrc/conv3_tc.cu` on the tensor cores for every channel pair the model
+has, `csrc/conv3.cu` on the CUDA cores for any other.
 
 Rules the package keeps:
 

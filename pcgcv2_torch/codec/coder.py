@@ -170,9 +170,10 @@ class Coder:
     ):
         """input_granularity buckets the point count of the density-prior
         plan.  (The JAX Coder's prune_granularity sized static extraction
-        buffers; eager PyTorch needs none.)  streamed_slabs > 0
-        (or res >= 2048) asks for the streamed decode, which this package
-        does not have yet."""
+        buffers; eager PyTorch needs none.)  streamed_slabs > 0 decodes
+        the final stage in that many x-slabs (`_decode_streamed`); 0 picks
+        8 slabs for plans at res >= 2048 and the monolithic decode below
+        that."""
         self.device = B.resolve_device(device)
         self.filename = filename
         self.res = res
@@ -287,14 +288,16 @@ class Coder:
         nums = torch.tensor(num_points, dtype=torch.int32, device=self.device)
         nums_list = [nums[0:1], nums[1:2], nums[2:3]]
         for tier, plan in enumerate(plans):
-            if self.streamed_slabs or plan.res >= 2048:
-                raise NotImplementedError(
-                    "streamed decode (res >= 2048 or streamed_slabs > 0) is "
-                    "not ported yet")
+            n_slabs = self.streamed_slabs or (8 if plan.res >= 2048 else 0)
             y = B.blockify(rows, y_feats, valid, plan.nb[3], stride=8,
                            res=res_y, num_batches=1)
-            out = self.model.decode_fn(y, nums_list, plan)
-            dropped = int(out.dropped)
+            if n_slabs:
+                out, dropped = self._decode_streamed(y, nums_list, plan,
+                                                     n_slabs)
+            else:
+                out = self.model.decode_fn(y, nums_list, plan)
+                dropped = out.dropped
+            dropped = int(dropped)
             if not dropped:
                 break
             if tier + 1 == len(plans):
@@ -309,6 +312,55 @@ class Coder:
         result = B.host_extract(bc.cpu().numpy(), bits.cpu().numpy())
         assert len(result) == n_out, "host extraction count mismatch"
         return result
+
+    def _decode_streamed(self, y: B.BlockGrid, nums_list, plan: BlockPlan,
+                         n_slabs: int):
+        """Memory-bounded decode: stages 0-1 whole, the final stage over
+        x-slabs of the stride-2 blocks, each with a 1-block halo (the
+        stage's receptive field is 8 voxels).  Candidate features exist
+        only per slab; the whole frame holds only the candidate structure
+        and its 1-channel f32 logits.  Returns (pruned candidate grid,
+        dropped blocks).
+
+        Slab bounds are equal-count quantiles of the sorted block x-coords
+        (rows are sorted by (b, bx, by, bz), so the valid prefix's bx is
+        nondecreasing and a rank indexes it directly); slab i owns bx in
+        [bounds[i], bounds[i+1]).  Balanced counts let the per-slab caps
+        sit at 2x the mean (halo planes + candidate drift); an overflow is
+        counted and retried on the next plan tier.
+        """
+        model = self.model
+        out = model.decode_coarse_fn(y, nums_list[:2], plan)
+        cand_cap = plan.up_cap(2)
+        cand = B.conv_up_structure(out, cand_cap)
+        # a slab's blocks are a subset of the whole grid's, so its caps
+        # never need to exceed the whole grid's
+        sub_in_cap = min(out.nb_cap, max(32, plan.dec_nb[1] * 2 // n_slabs))
+        sub_cand_cap = min(cand_cap, max(256, cand_cap * 2 // n_slabs))
+        logits = torch.zeros(cand_cap, B.VOL, dtype=torch.float32,
+                             device=self.device)
+
+        bx = out.coords[:, 1]
+        ranks = (torch.arange(1, n_slabs, device=self.device) * out.count
+                 // n_slabs).clamp(0, out.nb_cap - 1)
+        bounds = [0] + bx[ranks].tolist() + [B.grid_dim(out.res)]
+        dropped = cand.dropped
+        for ia, ib in zip(bounds[:-1], bounds[1:]):
+            sub = B.compact_where(out, (bx >= ia - 1) & (bx < ib + 1),
+                                  sub_in_cap)
+            cls = model.decode_stage2_fn(sub, sub_cand_cap)
+            del sub
+            # every sub-grid inherits out.dropped; count only the slab's own
+            dropped = dropped + (cls.dropped - out.dropped)
+            cx = cls.coords[:, 1]
+            rows = cand.table.long()[B._flat_block_key(cls.coords, cand.G)]
+            # interior candidate blocks only; the sentinel row stays zero
+            inner = ((cx >= 2 * ia) & (cx < 2 * ib) & cls.valid
+                     & (rows < cand_cap - 1))
+            logits[rows[inner]] = cls.feats[inner, :, 0].float()
+            del cls
+        keep = B.topk_mask(cand, logits, nums_list[2])
+        return B.prune(cand, keep), dropped
 
     def bitstream_bytes(self, postfix: str = "") -> dict:
         """Sizes of the 4 bitstream files."""

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from pcgcv2_torch.data.voxelize import unique_rows
+
 
 def sphere_cloud(
     resolution: int = 128, density: float = 4.0, seed: int = 0
@@ -21,7 +23,7 @@ def sphere_cloud(
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     pts = np.round(u * r + resolution / 2).astype(np.int32)
     pts = np.clip(pts, 0, resolution - 1)
-    return np.unique(pts, axis=0)
+    return unique_rows(pts)
 
 
 def random_surface_cloud(
@@ -101,7 +103,7 @@ def random_surface_cloud(
         clouds.append(pts @ rot + center)
     pts = np.concatenate(clouds, axis=0)
     pts = np.clip(np.round(pts), 0, resolution - 1).astype(np.int32)
-    return np.unique(pts, axis=0)
+    return unique_rows(pts)
 
 
 def torus_cloud(
@@ -122,4 +124,4 @@ def torus_cloud(
     z = small_r * np.sin(phi)
     pts = np.stack([x, y, z], axis=1) + resolution / 2
     pts = np.clip(np.round(pts), 0, resolution - 1).astype(np.int32)
-    return np.unique(pts, axis=0)
+    return unique_rows(pts)

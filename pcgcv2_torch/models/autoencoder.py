@@ -97,8 +97,14 @@ class Decoder(nn.Module):
         out = y
         out_cls_list: List[BlockGrid] = []
         for s in range(3):
-            out, cls = self.stage(s, out, plan.up_cap(s))
+            cls, out = self.pruned_stage(s, out, nums_list[s], plan)
             out_cls_list.append(cls)
-            keep = B.topk_mask(out, cls.feats[:, :, 0], nums_list[s])
-            out = B.compact(B.prune(out, keep), plan.dec_nb[s])
         return out_cls_list, out
+
+    def pruned_stage(self, s: int, bg: BlockGrid, nums: torch.Tensor,
+                     plan: BlockPlan) -> Tuple[BlockGrid, BlockGrid]:
+        """`stage`, then keep the top `nums` logits and drop the blocks
+        left empty: (cls logits, pruned grid at cap plan.dec_nb[s])."""
+        out, cls = self.stage(s, bg, plan.up_cap(s))
+        keep = B.topk_mask(out, cls.feats[:, :, 0], nums)
+        return cls, B.compact(B.prune(out, keep), plan.dec_nb[s])

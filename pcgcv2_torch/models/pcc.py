@@ -54,3 +54,20 @@ class PCCModel(nn.Module):
                   plan: BlockPlan) -> BlockGrid:
         """Synthesis transform from a decoded bottleneck."""
         return self.decoder(y_q, nums_list, plan)[1]
+
+    def decode_coarse_fn(self, y_q: BlockGrid,
+                         nums_list: Sequence[torch.Tensor],
+                         plan: BlockPlan) -> BlockGrid:
+        """Decoder stages 0-1 only (strides 8 -> 4 -> 2): the small grids.
+        The streamed decode runs these whole and cuts only the final
+        stage, whose candidate features are the memory hog."""
+        out = y_q
+        for s in range(2):
+            _, out = self.decoder.pruned_stage(s, out, nums_list[s], plan)
+        return out
+
+    def decode_stage2_fn(self, bg: BlockGrid, up_cap: int) -> BlockGrid:
+        """Final decoder stage on a (sub-)grid: the cls-logit grid on the
+        pre-prune candidate blocks.  The stage's receptive field is 8
+        voxels, so a 1-block input halo makes the interior logits exact."""
+        return self.decoder.stage(2, bg, up_cap)[1]

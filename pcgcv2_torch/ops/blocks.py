@@ -427,26 +427,17 @@ def conv_down(
     )
 
 
-def conv_up_generative(
-    bg: BlockGrid,
-    weight: torch.Tensor,
-    bias: Optional[torch.Tensor],
-    nb_cap_out: int,
-    compute_dtype=None,
-) -> BlockGrid:
-    """Generative transposed conv (kernel 2, stride 2): stride 2s -> s.
+def _up_structure(bg: BlockGrid, nb_cap_out: int):
+    """Output structure of the generative up-conv (stride 2s -> s).
 
-    Every occupied voxel p emits its 8 children 2p + (dx, dy, dz), child
-    (dx, dy, dz) getting weight[dx*4 + dy*2 + dz] (no kernel flip in this
-    matmul form).  Parent octant o of block r becomes child block
-    2*coords + o; only child blocks with an occupied slot become output
-    blocks.  The child features are computed per OUTPUT row from its
-    source octant (a gather, then one matmul), so nothing of the 8x-size
-    candidate tensor exists beyond the output rows.
+    Parent octant o of block r becomes child block 2*coords + o (x-major
+    octant order); only child blocks with an occupied slot become output
+    blocks.  Returns (coords, table, count, overflow, src, mask): src
+    [nb_cap_out] is the source (parent row * 8 + octant) of each output
+    row, nb * 8 for rows without one (an appended all-empty octant), and
+    mask is the output slot occupancy, re-masked to the valid rows.
     """
-    cd = compute_dtype or COMPUTE_DTYPE
-    nb, ch = bg.nb_cap, bg.channels
-    cout = weight.shape[-1]
+    nb = bg.nb_cap
     res_out = bg.res * 2
     check_table_size(res_out, bg.num_batches)
     g_out = grid_dim(res_out)
@@ -467,17 +458,44 @@ def conv_up_generative(
     ocoords, otable, ocount, o_over = _compact_from_occupancy(
         occ, g_out, nb_cap_out)
 
-    # source (parent row * 8 + octant) of every output row; rows without a
-    # source (and overflowed children) read an appended all-zero octant
+    # overflowed children map to the sentinel row: they have no output row
     crow = otable.long()[ckey]
     ok = cvalid & (crow < nb_cap_out - 1)
     n_src = nb * 8
     src = _scatter_drop(nb_cap_out, crow, ok, _arange(n_src, device),
                         n_src, torch.int64)
-    x_oct = _octants(bg.blocks, nb).reshape(n_src, h ** 3, ch)
-    x_oct = torch.cat([x_oct, x_oct.new_zeros(1, h ** 3, ch)])
     m_oct = torch.cat([m_oct, m_oct.new_zeros(1, h ** 3)])
+    om = m_oct[src].reshape(nb_cap_out, h, 1, h, 1, h, 1)
+    om = om.expand(nb_cap_out, h, 2, h, 2, h, 2).reshape(nb_cap_out, VOL)
+    ovalid = _arange(nb_cap_out, device) < ocount
+    return ocoords, otable, ocount, o_over, src, om & ovalid[:, None]
 
+
+def conv_up_generative(
+    bg: BlockGrid,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    nb_cap_out: int,
+    compute_dtype=None,
+) -> BlockGrid:
+    """Generative transposed conv (kernel 2, stride 2): stride 2s -> s.
+
+    Every occupied voxel p emits its 8 children 2p + (dx, dy, dz), child
+    (dx, dy, dz) getting weight[dx*4 + dy*2 + dz] (no kernel flip in this
+    matmul form).  The output structure is `_up_structure`'s.  The child
+    features are computed per OUTPUT row from its source octant (a gather,
+    then one matmul), so nothing of the 8x-size candidate tensor exists
+    beyond the output rows.
+    """
+    cd = compute_dtype or COMPUTE_DTYPE
+    nb, ch = bg.nb_cap, bg.channels
+    cout = weight.shape[-1]
+    h = BS // 2
+    ocoords, otable, ocount, o_over, src, om = _up_structure(bg, nb_cap_out)
+
+    # rows without a source read an appended all-zero octant
+    x_oct = _octants(bg.blocks, nb).reshape(nb * 8, h ** 3, ch)
+    x_oct = torch.cat([x_oct, x_oct.new_zeros(1, h ** 3, ch)])
     w = weight.to(cd).permute(1, 0, 2).reshape(ch, 8 * cout)
     y = x_oct[src].to(cd).reshape(-1, ch) @ w  # [(row, voxel), (child, c)]
     y = y.reshape(nb_cap_out, h ** 3, 8, cout)
@@ -486,15 +504,31 @@ def conv_up_generative(
     # (row, pu, pv, pw, dx, dy, dz, c) -> slot (2pu+dx, 2pv+dy, 2pw+dz)
     y = y.to(bg.feats.dtype).reshape(nb_cap_out, h, h, h, 2, 2, 2, cout)
     of = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(nb_cap_out, VOL, cout)
-    om = m_oct[src].reshape(nb_cap_out, h, 1, h, 1, h, 1)
-    om = om.expand(nb_cap_out, h, 2, h, 2, h, 2).reshape(nb_cap_out, VOL)
-    ovalid = _arange(nb_cap_out, device) < ocount
-    om = om & ovalid[:, None]
     of = torch.where(om[:, :, None], of, 0)
     return BlockGrid(
         coords=ocoords, feats=of, mask=om, table=otable, count=ocount,
         dropped=bg.dropped + o_over,
-        stride=bg.stride // 2, res=res_out, num_batches=bg.num_batches,
+        stride=bg.stride // 2, res=bg.res * 2, num_batches=bg.num_batches,
+    )
+
+
+def conv_up_structure(bg: BlockGrid, nb_cap_out: int) -> BlockGrid:
+    """Structure-only generative up-conv: the coords, mask, table, count
+    and `dropped` of `conv_up_generative`, with 1-channel zero features
+    (no conv, no weight).
+
+    Lets the streamed decoder hold the whole candidate grid's structure
+    (needed for the global top-k) without its features, which are the
+    memory hog of a large frame.
+    """
+    ocoords, otable, ocount, o_over, _, om = _up_structure(bg, nb_cap_out)
+    return BlockGrid(
+        coords=ocoords,
+        feats=torch.zeros(nb_cap_out, VOL, 1, dtype=torch.float32,
+                          device=bg.device),
+        mask=om, table=otable, count=ocount,
+        dropped=bg.dropped + o_over,
+        stride=bg.stride // 2, res=bg.res * 2, num_batches=bg.num_batches,
     )
 
 
@@ -580,3 +614,13 @@ def compact(bg: BlockGrid, nb_cap_out: int) -> BlockGrid:
         dropped=bg.dropped + c_over,
         stride=bg.stride, res=bg.res, num_batches=bg.num_batches,
     )
+
+
+def compact_where(bg: BlockGrid, block_keep: torch.Tensor,
+                  nb_cap_out: int) -> BlockGrid:
+    """Restrict to the blocks where `block_keep` [nb_cap] holds, then
+    compact.  The sub-grid keeps the full grid's coordinate space (res and
+    table unchanged); only the kept blocks' features are carried.  The
+    streamed decode cuts its x-slabs (plus a 1-block halo) this way."""
+    m = bg.mask & (block_keep & bg.valid)[:, None]
+    return compact(bg.replace(mask=m), nb_cap_out)

@@ -151,13 +151,14 @@ def _halo_tables(device) -> tuple:
 
 
 def halo(feats: torch.Tensor, nbrs: torch.Tensor) -> torch.Tensor:
-    """[nb, VOL, C] feats + [nb, 3, 3, 3] neighbour rows -> the
-    [nb, BS+2, BS+2, BS+2, C] halos (misses read the zero sentinel row)."""
+    """[nb, VOL, C] feats + [n, 3, 3, 3] neighbour rows -> the
+    [n, BS+2, BS+2, BS+2, C] halos (misses read the zero sentinel row)."""
     nb, _, ch = feats.shape
+    n = nbrs.shape[0]
     nbr, slot = _halo_tables(feats.device)
-    rows = nbrs.reshape(nb, 27).long()[:, nbr]  # [nb, HS^3]
+    rows = nbrs.reshape(n, 27).long()[:, nbr]  # [n, HS^3]
     flat = rows * B.VOL + slot
-    return feats.reshape(nb * B.VOL, ch)[flat].reshape(nb, HS, HS, HS, ch)
+    return feats.reshape(nb * B.VOL, ch)[flat].reshape(n, HS, HS, HS, ch)
 
 
 def conv3_dense(h: torch.Tensor, weight: torch.Tensor,
@@ -179,7 +180,7 @@ def conv3_dense(h: torch.Tensor, weight: torch.Tensor,
     out = acc.to(compute_dtype)
     if bias is not None:
         out = (out.float() + bias.to(compute_dtype).float()).to(compute_dtype)
-    return out.reshape(nb, B.VOL, -1)
+    return out.reshape(nb, B.VOL, w.shape[-1])
 
 
 def conv3_plain(
@@ -190,10 +191,15 @@ def conv3_plain(
     compute_dtype=None,
 ) -> B.BlockGrid:
     """Plain PyTorch conv3: halo gather + 27 tap matmuls, f32 accumulation,
-    bias, then `with_feats`.  The CPU path and the kernel's reference."""
+    bias, then `with_feats`.  The CPU path and the kernel's reference.
+    Only the `count` valid rows are computed: `with_feats` zeroes the rest
+    (their mask is empty), and the streamed decode's slab grids hold far
+    fewer rows than their capacity."""
     cd = compute_dtype or B.COMPUTE_DTYPE
-    out = conv3_dense(halo(bg.feats, nbrs), weight, bias, cd)
-    return bg.with_feats(out.to(bg.feats.dtype))
+    n = int(bg.count)
+    out = bg.feats.new_zeros(bg.nb_cap, B.VOL, weight.shape[-1])
+    out[:n] = conv3_dense(halo(bg.feats, nbrs[:n]), weight, bias, cd)
+    return bg.with_feats(out)
 
 
 # ---------------------------------------------------------------------------

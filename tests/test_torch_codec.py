@@ -151,3 +151,113 @@ def test_cli_device_cuda_without_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--ckptdir", "tests/golden/golden.ckpt", "--filedir", ply,
               "--res", "16", "--outdir", str(tmp_path)])
+
+
+# --- the streamed decode --------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jdec(ctx):
+    """The JAX package's (monolithic) decode of its own stream."""
+    return ctx["jc"].decode()
+
+
+@pytest.mark.parametrize("n_slabs", [1, 3, 8])
+def test_streamed_decode_of_jax_stream(ctx, jdec, n_slabs):
+    """The port's streamed decode of the JAX stream gives the JAX decode's
+    point set.  At res 64 the stage-2 input spans 2 block planes, so 3 and
+    8 slabs leave slabs empty."""
+    from tests._tiny import TINY_MODEL
+
+    tc = TCoder(ctx["params"], ctx["jc"].filename, res=64,
+                model_config=TINY_MODEL, input_granularity=4096,
+                streamed_slabs=n_slabs, device="cpu")
+    got = tc.decode()
+    assert len(got) == len(jdec) == len(ctx["cloud"])
+    np.testing.assert_array_equal(_sorted(got), _sorted(jdec))
+
+
+class _Streamed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("streamed_slabs,res,want", [
+    (0, 64, None), (0, 2048, 8), (5, 64, 5)])
+def test_streamed_dispatch(ctx, monkeypatch, streamed_slabs, res, want):
+    """The JAX package's rule: streamed_slabs, else 8 slabs for plans at
+    res >= 2048, else the monolithic decode."""
+    from tests._tiny import TINY_MODEL
+
+    seen = []
+
+    def spy(self, y, nums_list, plan, n):
+        seen.append((n, plan.res))
+        raise _Streamed
+
+    monkeypatch.setattr(TCoder, "_decode_streamed", spy)
+    tc = TCoder(ctx["params"], ctx["jc"].filename, res=res,
+                model_config=TINY_MODEL, input_granularity=4096,
+                streamed_slabs=streamed_slabs, device="cpu")
+    if want is None:
+        assert len(tc.decode()) == len(ctx["cloud"])
+        assert seen == []
+    else:
+        with pytest.raises(_Streamed):
+            tc.decode()
+        assert seen == [(want, res)]
+
+
+def test_decode_stage_fns_match_jax(ctx):
+    """decode_coarse_fn, compact_where on its output and decode_stage2_fn
+    on that sub-grid at the streamed decode's caps, against the JAX
+    model's: structure exactly equal, features and logits within 1e-4."""
+    import jax.numpy as jnp
+
+    from pcgcv2_torch.ops import blocks as TB
+    from pcgcv2_tpu.ops import blocks as JB
+    from tests._tiny import TINY_MODEL
+
+    with open(ctx["jc"].filename + "_num_points.bin", "rb") as f:
+        head = np.frombuffer(f.read(28), dtype=np.int32)
+    plan = BlockPlan.for_frame(64, tuple(int(c) for c in head[3:7]))
+    coords, feats = ctx["jenc"]
+    rows = np.zeros((len(coords), 4), np.int32)
+    rows[:, 1:] = coords * 8
+    valid = np.ones(len(coords), bool)
+    nums = head[:3].copy()
+    # the stride-2 grid holds 2 blocks, at bz = 0 and 1: keep the second
+    sub_cap = max(32, plan.dec_nb[1] * 2 // 3)
+    up_cap = max(256, plan.up_cap(2) * 2 // 3)
+    model = PCCModel(config=TINY_MODEL, plan=plan, num_batches=1)
+
+    def jax_stages(params, rows, feats, valid, nums):
+        y = JB.blockify(rows, feats, valid, plan.nb[3], 8, 8, 1)
+        out = model.apply(params, y, [nums[0:1], nums[1:2]],
+                          method=PCCModel.decode_coarse_fn)
+        sub = JB.compact_where(out, out.coords[:, 3] >= 1, sub_cap)
+        cls = model.apply(params, sub, up_cap,
+                          method=PCCModel.decode_stage2_fn)
+        return out, sub, cls
+
+    args = (ctx["params"], jnp.asarray(rows), jnp.asarray(feats),
+            jnp.asarray(valid), jnp.asarray(nums))
+    # XLA's backend optimisations cost more compile time than they save
+    # in one run of this tiny graph
+    jgrids = jax.jit(jax_stages).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+    tmodel = ctx["tc"].model
+    with torch.inference_mode():
+        ty = TB.blockify(torch.from_numpy(rows), torch.from_numpy(feats),
+                         torch.from_numpy(valid), plan.nb[3], 8, 8, 1)
+        tn = torch.from_numpy(nums)
+        tout = tmodel.decode_coarse_fn(ty, [tn[0:1], tn[1:2]], plan)
+        tsub = TB.compact_where(tout, tout.coords[:, 3] >= 1, sub_cap)
+        tcls = tmodel.decode_stage2_fn(tsub, up_cap)
+    for j, t in zip(jgrids, (tout, tsub, tcls)):
+        for name in ("coords", "table", "count", "dropped", "mask"):
+            np.testing.assert_array_equal(
+                getattr(t, name).numpy(), np.asarray(getattr(j, name)),
+                err_msg=name)
+        np.testing.assert_allclose(t.feats.float().numpy(),
+                                   np.asarray(j.feats), rtol=1e-4, atol=1e-4)
+    assert 0 < int(tsub.count) < int(tout.count) and int(tcls.count) > 0
