@@ -34,6 +34,20 @@ Phases (each prints its own lines; any failure exits non-zero):
         beside it;
      c. pcgcv2_torch.cli.test.run_sweep on the golden frame: the CSV row's
         count, bpp and D1 against the golden triple.
+  7. training (a batch of 8 random_surface_cloud(127, seed=s, density=2)
+     clouds, 327,003 voxels, BlockPlan.for_training(524288, 128, 8)):
+     a. conv3's backward kernels against autograd through conv3_plain at
+        every conv3 shape of a full-width training step, on grids of that
+        batch, f32 and bf16: dX (conv3_tc.cu on the flipped weight) and dW
+        (conv3_wgrad.cu), with kernel / plain / library (cuDNN through
+        torch.nn.grad) times and the bound;
+     b. the full-width trainer step as scripts/train_rd.py runs it (remat
+        on, alpha 2, beta 1, lr 8e-4), bf16 then f32: 20 steps on the
+        batch, the median of steps 1-5, peak memory, forward / dX / dW
+        launches per step (127 / 63 / 64, every forward and dX on the
+        tensor cores), finite losses, no dropped block, a falling loss;
+     c. pcgcv2_torch.cli.train for one epoch on 20 such clouds written as
+        .ply (f32), and its checkpoint through Coder on the golden frame.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a CUDA device or without the pcgcv2_torch
@@ -43,6 +57,7 @@ package beside it.  Imports nothing of JAX or of pcgcv2_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -93,6 +108,40 @@ VOX10_GATES = {"bfloat16": (0.492671, 69.4159), "float32": (0.493043, 69.4005)}
 # vox11-class frame (phase 6b), ckpts/r4: the first readings of the streamed
 # decode (chip_smoke.py on an H100, 700 W), held with the vox10 tolerances
 VOX11_GATES = {"bfloat16": (0.494696, 74.9098), "float32": (0.495046, 74.9102)}
+# phase 7: the training batch, its plan, and conv3's backward shapes.  Per
+# step: (nb_cap, stride, decoder candidates?, ci, co) -> (dX launches, dW
+# launches).  Encoder grids hold the batch's voxels at the stride, decoder
+# stages the children of the voxels at twice the stride, at the stage's
+# candidate cap (up_cap 72, 520, 4104).  The first conv reads data: no dX.
+TRAIN_BATCH, TRAIN_RES, TRAIN_CAPACITY = 8, 128, 524288
+TRAIN_STEPS = 20
+PER_TRAIN_STEP = {
+    (4097, 1, False, 1, 16): (0, 1),
+    (513, 2, False, 32, 8): (3, 3), (513, 2, False, 8, 16): (3, 3),
+    (513, 2, False, 8, 8): (3, 3), (513, 2, False, 32, 32): (1, 1),
+    (65, 4, False, 64, 16): (3, 3), (65, 4, False, 16, 32): (3, 3),
+    (65, 4, False, 16, 16): (3, 3), (65, 4, False, 64, 64): (1, 1),
+    (9, 8, False, 32, 8): (4, 4), (9, 8, False, 8, 16): (3, 3),
+    (9, 8, False, 8, 8): (3, 3),
+    (72, 4, True, 64, 64): (1, 1), (72, 4, True, 64, 16): (3, 3),
+    (72, 4, True, 16, 32): (3, 3), (72, 4, True, 16, 16): (3, 3),
+    (72, 4, True, 64, 1): (1, 1),
+    (520, 2, True, 32, 32): (1, 1), (520, 2, True, 32, 8): (3, 3),
+    (520, 2, True, 8, 16): (3, 3), (520, 2, True, 8, 8): (3, 3),
+    (520, 2, True, 32, 1): (1, 1),
+    (4104, 1, True, 16, 16): (1, 1), (4104, 1, True, 16, 4): (3, 3),
+    (4104, 1, True, 4, 8): (3, 3), (4104, 1, True, 4, 4): (3, 3),
+    (4104, 1, True, 16, 1): (1, 1),
+}
+# conv3 launches per training step with remat: (forward, of which tensor
+# cores, dX, of which tensor cores, dW).  Remat runs each forward twice but
+# the encoder's last conv, which lies outside the checkpointed scales.
+TRAIN_LAUNCHES = (127, 127, 63, 63, 64)
+# backward kernels against f32 autograd through conv3_plain, max abs error
+# over max |ref|: f32 (dX by 3xTF32, dW by f32 FMA; summation order only),
+# bf16 (the kernels' outputs rounded to bf16: 2^-9 relative, and sums in
+# another order)
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 KERNEL_REPS = 10     # timed launches per kernel shape (median)
 VOX10_REPS = 3       # timed vox10 encode+decode reps per dtype (best)
 
@@ -418,7 +467,8 @@ def empty_tiles(coder, cloud) -> dict:
     real = layers.conv3
     tally = {k: [0, 0, 0.0, 0.0] for k in ("row16", "warp32", "slab4")}
 
-    def spy(bg, nbrs, weight, bias=None, compute_dtype=None, packed=None):
+    def spy(bg, nbrs, weight, bias=None, compute_dtype=None, packed=None,
+            **kw):
         ci, co = bg.channels, weight.shape[-1]
         if K.route(ci, co, compute_dtype or B.COMPUTE_DTYPE) == "tc":
             n = int(bg.count)
@@ -433,7 +483,7 @@ def empty_tiles(coder, cloud) -> dict:
                 t[1] += occ.numel()
                 t[2] += empty * 27 * ci * co
                 t[3] += occ.numel() * 27 * ci * co
-        return real(bg, nbrs, weight, bias, compute_dtype, packed)
+        return real(bg, nbrs, weight, bias, compute_dtype, packed, **kw)
 
     layers.conv3 = spy
     try:
@@ -747,9 +797,453 @@ def phase_streamed(device, workdir: str, card: str):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training
+# ---------------------------------------------------------------------------
+
+
+def train_batch():
+    """The 8 clouds of one training batch, as scripts/train_rd.py draws
+    them: random_surface_cloud(127, seed=s, density=2.0), s = 0..7."""
+    from pcgcv2_torch.data.synthetic import random_surface_cloud
+
+    return [random_surface_cloud(127, seed=s, density=2.0)
+            for s in range(TRAIN_BATCH)]
+
+
+def train_grid(clouds, stride: int, nb_cap: int, children: bool, ch: int,
+               seed: int, device):
+    """A grid of the training batch at `stride` and cap `nb_cap`, with
+    N(0,1) features: the encoder's voxel set (the clouds at that stride),
+    or with `children` a decoder stage's candidates (the 8 children of
+    every voxel at twice the stride)."""
+    import numpy as np
+    import torch
+
+    from pcgcv2_torch.ops import blocks as B
+
+    rows = []
+    for b, c in enumerate(clouds):
+        if children:
+            p = np.unique(c // (2 * stride), axis=0)
+            d = np.stack(np.meshgrid(*[[0, 1]] * 3, indexing="ij"),
+                         -1).reshape(8, 3)
+            v = np.unique((p[:, None] * 2 + d[None]).reshape(-1, 3), axis=0)
+        else:
+            v = np.unique(c // stride, axis=0)
+        rows.append(np.concatenate(
+            [np.full((len(v), 1), b), v * stride], axis=1))
+    coords = torch.from_numpy(np.concatenate(rows).astype(np.int32))
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn(len(coords), ch, generator=g)
+    bg = B.blockify(coords.to(device), feats.to(device),
+                    torch.ones(len(coords), dtype=torch.bool, device=device),
+                    nb_cap, stride=stride, res=TRAIN_RES // stride,
+                    num_batches=len(clouds))
+    assert int(bg.dropped) == 0, f"training grid overflowed at cap {nb_cap}"
+    return bg
+
+
+def plain_grads(bg, nbrs, w, b, G):
+    """Autograd through conv3_plain in f32: (dX at every slot, dW, db) of
+    sum(conv3(x) * G)."""
+    import torch
+
+    from pcgcv2_torch.ops import conv3 as K
+
+    x = bg.feats.detach().float().requires_grad_(True)
+    wf = w.detach().float().requires_grad_(True)
+    bf = b.detach().float().requires_grad_(True)
+    out = K.conv3_plain(bg.replace(feats=x), nbrs, wf, bf, torch.float32)
+    dx, dw, db = torch.autograd.grad((out.feats * G.float()).sum(),
+                                     (x, wf, bf))
+    return dx, dw, db
+
+
+def lib_grads(bg, nbrs, w, G, cd):
+    """The library's conv3 input and weight gradients (cuDNN through
+    torch.nn.grad) on the assembled halo of the live rows: two callables,
+    dense part only."""
+    import torch
+
+    from pcgcv2_torch.ops import conv3 as K
+
+    n = int(bg.count)
+    h = K.halo(bg.feats.to(cd), nbrs[:n]).permute(0, 4, 1, 2, 3).contiguous()
+    go = G[:n].to(cd).reshape(n, 16, 16, 16, -1).permute(
+        0, 4, 1, 2, 3).contiguous()
+    wl = w.to(cd).permute(4, 3, 0, 1, 2).contiguous()
+    gi = torch.nn.grad.conv3d_input
+    gw = torch.nn.grad.conv3d_weight
+    return (lambda: gi(h.shape, wl, go), lambda: gw(h, wl.shape, go))
+
+
+def phase_train_kernels(device, clouds):
+    """7a: conv3_dgrad (conv3_tc.cu on the flipped weight) and conv3_wgrad
+    (conv3_wgrad.cu) against autograd through conv3_plain at every conv3
+    shape of a full-width training step, f32 and bf16."""
+    import torch
+
+    from pcgcv2_torch.ops import blocks as B
+    from pcgcv2_torch.ops import conv3 as K
+
+    log("== phase 7a: conv3 backward kernels vs autograd through "
+        "conv3_plain ==")
+    gen = torch.Generator(device=device).manual_seed(7)
+    rows = []
+    grids = {}
+    for (nb_cap, stride, children, ci, co), (n_dx, n_dw) in \
+            PER_TRAIN_STEP.items():
+        key = (nb_cap, stride, children)
+        if key not in grids:
+            grids.clear()
+            torch.cuda.empty_cache()
+            grids[key] = train_grid(clouds, stride, nb_cap, children, 64,
+                                    seed=nb_cap, device=device)
+        base = grids[key]
+        nbrs = B.neighbor_rows(base)
+        live = (base.mask & base.valid[:, None])
+        occ = float(live.sum()) / (int(base.count) * B.VOL)
+        w = torch.randn(3, 3, 3, ci, co, device=device, generator=gen)
+        w *= math.sqrt(2.0 / (27 * ci))
+        b = 0.1 * torch.randn(co, device=device, generator=gen)
+        G = torch.randn(nb_cap, B.VOL, co, device=device, generator=gen)
+        row = {"nb_cap": nb_cap, "stride": stride, "candidates": children,
+               "live_rows": int(base.count), "occupancy": occ, "ci": ci,
+               "co": co, "dx_per_step": n_dx, "dw_per_step": n_dw}
+        for dtype in ("float32", "bfloat16"):
+            cd = B._DTYPES[dtype]
+            bg = base.replace(feats=base.feats[:, :, :ci].to(cd))
+            wc, bc, Gc = w.to(cd), b.to(cd), G.to(cd)
+            # reference: f32 autograd on the same (rounded) inputs
+            rdx, rdw, _ = plain_grads(bg, nbrs, wc, bc, Gc)
+            gm = torch.where(live[:, :, None], Gc, 0)
+            gbg = bg.replace(feats=gm)
+            wf = K.flip_weight(wc)
+            pf = K.pack_weight(wf)
+            dx = K.conv3_dgrad(gbg, nbrs, wc, cd, pf).feats
+            dw = K.conv3_wgrad(bg, gm, nbrs, cd)
+            torch.cuda.synchronize()
+            lv = live[:, :, None].expand_as(rdx)
+            dx_err = float((dx.float() - rdx)[lv].abs().max())
+            dx_scale = float(rdx[lv].abs().max())
+            dw_err = float((dw.to(cd).float() - rdw).abs().max())
+            dw_scale = float(rdw.abs().max())
+            zero_ok = float(dx.float()[~lv].abs().max()) == 0.0
+            rel = TRAIN_TOL[dtype]
+            ok = (dx_err <= rel * dx_scale and dw_err <= rel * dw_scale
+                  and zero_ok)
+            lib_dx, lib_dw = lib_grads(bg, nbrs, wc, Gc, cd)
+            t = {
+                "dx_ms": cuda_ms(lambda: K.conv3_dgrad(gbg, nbrs, wc, cd, pf),
+                                 KERNEL_REPS),
+                "dw_ms": cuda_ms(lambda: K.conv3_wgrad(bg, gm, nbrs, cd),
+                                 KERNEL_REPS),
+                "dx_plain_ms": cuda_ms(lambda: K.conv3_plain(
+                    gbg, nbrs, wf, None, cd), 3),
+                "dw_plain_ms": cuda_ms(lambda: K.conv3_wgrad_plain(
+                    bg, gm, nbrs, cd), 3),
+                "dx_library_ms": cuda_ms(lib_dx, KERNEL_REPS),
+                "dw_library_ms": cuda_ms(lib_dw, KERNEL_REPS),
+            }
+            # dX moves and computes what the forward conv (co -> ci) does;
+            # dW reads x and dy and does the same products
+            dx_b, dx_o = conv3_bound(gbg, nbrs, co, ci, dtype)
+            dw_b, dw_o = conv3_bound(bg, nbrs, ci, co, dtype)
+            row[dtype] = {
+                "dx_max_abs_err": dx_err, "dx_max_abs_ref": dx_scale,
+                "dw_max_abs_err": dw_err, "dw_max_abs_ref": dw_scale,
+                "dx_route": K.route(co, ci, cd), "ok": ok, **t,
+                "dx_bytes_ms": dx_b, "dx_ops_ms": dx_o,
+                "dx_bound_ms": max(dx_b, dx_o),
+                "dw_bytes_ms": dw_b, "dw_ops_ms": dw_o,
+                "dw_bound_ms": max(dw_b, dw_o),
+            }
+            log(f"conv3 bwd nb={nb_cap:<5d} s={stride} ci={ci:<3d} co={co:<3d}"
+                f" {dtype:<8s} live {int(base.count)} occ {occ:.3f} "
+                f"x{n_dx}/{n_dw} per step  dX err {dx_err:.3g} (|ref| "
+                f"{dx_scale:.3g}) {t['dx_ms']:.4f} ms  plain "
+                f"{t['dx_plain_ms']:.4f}  cuDNN {t['dx_library_ms']:.4f}  "
+                f"bound {max(dx_b, dx_o):.4f} | dW err {dw_err:.3g} (|ref| "
+                f"{dw_scale:.3g}) {t['dw_ms']:.4f} ms  plain "
+                f"{t['dw_plain_ms']:.4f}  cuDNN {t['dw_library_ms']:.4f}  "
+                f"bound {max(dw_b, dw_o):.4f}  {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"conv3 backward kernels disagree at nb={nb_cap} "
+                    f"ci={ci} co={co} {dtype}: dX {dx_err} of {dx_scale}, "
+                    f"dW {dw_err} of {dw_scale} (tolerance {rel} of max "
+                    f"|ref|), dX zero off the live slots: {zero_ok}")
+            del lib_dx, lib_dw
+        rows.append(row)
+    grids.clear()
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        tot = {k: per_step_sum(rows, dtype, k) for k in (
+            "dx_ms", "dx_plain_ms", "dx_library_ms", "dx_bound_ms", "dw_ms",
+            "dw_plain_ms", "dw_library_ms", "dw_bound_ms")}
+        log(f"conv3 backward per training step, {dtype}: dX "
+            f"{tot['dx_ms']:.3f} ms (plain {tot['dx_plain_ms']:.3f}, cuDNN "
+            f"{tot['dx_library_ms']:.3f}, bound {tot['dx_bound_ms']:.4f}); "
+            f"dW {tot['dw_ms']:.3f} ms (plain {tot['dw_plain_ms']:.3f}, "
+            f"cuDNN {tot['dw_library_ms']:.3f}, bound "
+            f"{tot['dw_bound_ms']:.4f})")
+    return rows
+
+
+def per_step_sum(rows, dtype: str, key: str) -> float:
+    """A phase-7a column summed over the training step's shapes, each
+    weighted by its dX or dW launches per step."""
+    n = "dx_per_step" if key.startswith("dx") else "dw_per_step"
+    return sum(r[n] * r[dtype][key] for r in rows)
+
+
+def backward_counts():
+    """(forward, forward on the tensor cores, dX, dX on the tensor cores,
+    dW) conv3 launches since the counts were last set to 0."""
+    from pcgcv2_torch.ops import conv3 as K
+
+    return (K.conv3.launches, K.conv3.tc_launches, K.conv3_dgrad.launches,
+            K.conv3_dgrad.tc_launches, K.conv3_wgrad.launches)
+
+
+def zero_counts() -> None:
+    from pcgcv2_torch.ops import conv3 as K
+
+    K.conv3.launches = K.conv3.tc_launches = 0
+    K.conv3_dgrad.launches = K.conv3_dgrad.tc_launches = 0
+    K.conv3_wgrad.launches = 0
+
+
+def phase_train_steps(device, workdir: str, card: str, clouds):
+    """7b: trainer steps at full width on one fixed batch, bf16 then f32:
+    a warm-up step, 5 timed steps, then steps up to TRAIN_STEPS; launches
+    per step, loss terms, peak memory."""
+    import torch
+
+    from pcgcv2_torch.config import BlockPlan, ModelConfig, TrainConfig
+    from pcgcv2_torch.ops import blocks as B
+    from pcgcv2_torch.train.trainer import Trainer
+
+    from torch.profiler import ProfilerActivity, profile
+
+    log("== phase 7b: full-width training steps (8 clouds, "
+        "for_training(524288, 128, 8), remat on) ==")
+    result = {}
+    plan = BlockPlan.for_training(TRAIN_CAPACITY, TRAIN_RES, TRAIN_BATCH)
+    log(f"plan nb {plan.nb} dec_nb {plan.dec_nb} up caps "
+        f"{[plan.up_cap(s) for s in range(3)]}; "
+        f"{sum(len(c) for c in clouds)} voxels")
+    for dtype in ("bfloat16", "float32"):
+        B.set_compute_dtype(dtype)
+        cfg = TrainConfig(alpha=2.0, beta=1.0, lr=8e-4,
+                          batch_size=TRAIN_BATCH)
+        tr = Trainer(cfg, plan, TRAIN_CAPACITY, ModelConfig(),
+                     logdir=os.path.join(workdir, f"tl_{dtype}"),
+                     ckptdir=os.path.join(workdir, f"tc_{dtype}"),
+                     seed=0, device=device)
+        coords, valid = tr._collate(clouds)
+        steps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TRAIN_STEPS):
+            zero_counts()
+            last = i == TRAIN_STEPS - 1
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) \
+                if last else contextlib.nullcontext()
+            with prof:
+                t0 = time.perf_counter()
+                d, _, n_drop = tr.step(coords, valid)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            counts = backward_counts()
+            if last:  # the last step runs under the profiler
+                result[f"profile_{dtype}"] = train_profile(prof, sec, dtype)
+            s = {"ms": sec * 1e3, "loss": d["loss"].item(),
+                 "bce": d["bce"].item(), "bpp": d["bpp"].item(),
+                 "dropped": int(n_drop), "launches": counts}
+            steps.append(s)
+            log(f"train {dtype} step {i}: {s['ms']:.2f} ms  loss "
+                f"{s['loss']:.5f}  bce {s['bce']:.5f}  bpp {s['bpp']:.5f}  "
+                f"dropped {s['dropped']}  conv3 fwd {counts[0]} ({counts[1]}"
+                f" tc)  dX {counts[2]} ({counts[3]} tc)  dW {counts[4]}")
+            if not all(math.isfinite(s[k]) for k in ("loss", "bce", "bpp")):
+                raise AssertionError(f"train {dtype} step {i}: not finite")
+            assert s["dropped"] == 0, f"train {dtype} step {i} dropped blocks"
+            assert counts == TRAIN_LAUNCHES, \
+                f"train {dtype} step {i}: launches {counts}, want " \
+                f"{TRAIN_LAUNCHES} (fwd, fwd tc, dX, dX tc, dW)"
+        peak = torch.cuda.max_memory_allocated()
+        timed = [s["ms"] for s in steps[1:6]]
+        first, last = steps[0]["loss"], steps[-1]["loss"]
+        log(f"train {dtype}: step median {statistics.median(timed):.2f} ms "
+            f"(steps 1-5: {', '.join(f'{t:.2f}' for t in timed)})  peak "
+            f"device memory {peak / 2**30:.2f} GiB  loss step 0 {first:.5f} "
+            f"-> step {TRAIN_STEPS - 1} {last:.5f}  [{card}]")
+        assert last < first, f"train {dtype}: loss did not fall"
+        result[dtype] = {
+            "step_ms_median": statistics.median(timed), "step_ms": timed,
+            "profiled_step_ms": steps[-1]["ms"],
+            "warmup_ms": steps[0]["ms"], "peak_bytes": peak,
+            "losses": [s["loss"] for s in steps],
+            "bce": [s["bce"] for s in steps],
+            "bpp": [s["bpp"] for s in steps],
+            "launches": dict(zip(("fwd", "fwd_tc", "dx", "dx_tc", "dw"),
+                                 TRAIN_LAUNCHES)),
+            "dropped": 0,
+        }
+        del tr
+        torch.cuda.empty_cache()
+    return result
+
+
+def train_profile(prof, sec: float, dtype: str) -> dict:
+    """Device time of one profiled training step by kernel: the conv3
+    kernels (forward and dX share conv3_tc_kernel; dW is the two
+    conv3_wgrad kernels), everything else, and the device idle share of
+    the step's wall.  The table goes to OUT_DIR."""
+    import torch
+
+    ka = prof.key_averages()
+    attr = ("device_time_total" if hasattr(ka[0], "device_time_total")
+            else "cuda_time_total")
+    kernels = sorted(
+        (e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: -getattr(e, attr))
+
+    def ms(pred):
+        return sum(getattr(e, attr) for e in kernels if pred(e.key)) / 1e3
+
+    dev_ms = ms(lambda k: True)
+    tc_ms = ms(lambda k: "conv3_tc_kernel" in k)
+    dw_ms = ms(lambda k: "wgrad_" in k)
+    wall_ms = sec * 1e3
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"profile_train_{dtype}.txt").write_text(
+        ka.table(sort_by=attr, row_limit=60))
+    log(f"profile train {dtype}: wall {wall_ms:.2f} ms (under the "
+        f"profiler); device kernels {dev_ms:.2f} ms, of which conv3_tc "
+        f"(forward + dX) {tc_ms:.2f} ms and conv3_wgrad {dw_ms:.2f} ms; "
+        f"device idle {100 * (1 - dev_ms / wall_ms):.1f}% of wall")
+    for e in kernels[:12]:
+        log(f"  {getattr(e, attr) / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:100]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "conv3_tc_ms": tc_ms,
+            "conv3_wgrad_ms": dw_ms, "idle_share": 1.0 - dev_ms / wall_ms,
+            "top": [(e.key[:100], getattr(e, attr) / 1e3, e.count)
+                    for e in kernels[:12]]}
+
+
+def phase_train_cli(device, workdir: str):
+    """7c: pcgcv2_torch.cli.train on 20 clouds written as .ply, one epoch
+    in f32 from a scratch working directory; its checkpoint through Coder
+    on the golden frame decodes to the input count."""
+    import numpy as np
+
+    from pcgcv2_torch.checkpoint import load_params
+    from pcgcv2_torch.cli import train as cli
+    from pcgcv2_torch.codec.coder import Coder
+    from pcgcv2_torch.data.io import write_ply_ascii_geo
+    from pcgcv2_torch.data.synthetic import random_surface_cloud, torus_cloud
+    from pcgcv2_torch.ops import blocks as B
+
+    log("== phase 7c: pcgcv2_torch.cli.train, one epoch, f32; its "
+        "checkpoint through Coder ==")
+    B.set_compute_dtype("float32")
+    data = os.path.join(workdir, "train_ply")
+    os.makedirs(data)
+    for s in range(20):
+        write_ply_ascii_geo(os.path.join(data, f"c{s:02d}.ply"),
+                            random_surface_cloud(127, seed=s, density=2.0))
+    run_dir = os.path.join(workdir, "train_run")
+    os.makedirs(run_dir)
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        tr = cli.main(["--dataset", data, "--epoch", "1", "--device",
+                       device.type, "--prefix", "smoke"])
+        sec = time.perf_counter() - t0
+        counts = backward_counts()
+    finally:
+        os.chdir(cwd)
+    ckpts = sorted(Path(run_dir, "ckpts", "smoke").glob("*.ckpt"))
+    log(f"cli.train: {sec:.1f} s, epoch {tr.epoch}, checkpoints "
+        f"{[p.name for p in ckpts]}, conv3 fwd {counts[0]} dX {counts[2]} "
+        f"dW {counts[4]} launches (3 steps and 1 test batch)")
+    assert ckpts, "cli.train wrote no checkpoint"
+    cloud = torus_cloud(170, density=2.0, seed=42)
+    coder = Coder(load_params(str(ckpts[-1])), os.path.join(workdir, "tcli"),
+                  res=256, device=device)
+    coder.encode(cloud)
+    dec = coder.decode()
+    log(f"cli.train checkpoint through Coder: decoded {len(dec)} of "
+        f"{len(cloud)} points")
+    assert len(dec) == len(cloud), "trained checkpoint decoded another count"
+    assert len(np.unique(dec, axis=0)) == len(dec)
+    return {"seconds": sec, "checkpoint": ckpts[-1].name,
+            "decoded": len(dec), "n_points": len(cloud),
+            "launches": dict(zip(("fwd", "fwd_tc", "dx", "dx_tc", "dw"),
+                                 counts))}
+
+
+def phase_train(device, workdir: str, card: str):
+    clouds = train_batch()
+    return {"kernels": phase_train_kernels(device, clouds),
+            "steps": phase_train_steps(device, workdir, card, clouds),
+            "cli": phase_train_cli(device, workdir)}
+
+
+def train_kernel_entries(train) -> list:
+    """The kernels line's entries of conv3's backward: times summed over
+    one training step's launches (phase 7a), launches of the step's run
+    (phase 7b), f32 with bf16 beside it."""
+    rows = train["kernels"]
+
+    def entry(prefix, dtype):
+        n = "dx" if prefix == "dx" else "dw"
+        by_bytes = (per_step_sum(rows, dtype, f"{prefix}_bytes_ms")
+                    >= per_step_sum(rows, dtype, f"{prefix}_ops_ms"))
+        return {
+            "launches": train["steps"][dtype]["launches"][n],
+            "max_abs_err": max(r[dtype][f"{prefix}_max_abs_err"]
+                               for r in rows),
+            "max_rel_err": max(r[dtype][f"{prefix}_max_abs_err"]
+                               / r[dtype][f"{prefix}_max_abs_ref"]
+                               for r in rows),
+            "ms": per_step_sum(rows, dtype, f"{prefix}_ms"),
+            "plain_ms": per_step_sum(rows, dtype, f"{prefix}_plain_ms"),
+            "bound_ms": per_step_sum(rows, dtype, f"{prefix}_bound_ms"),
+            "bound_by": "bytes" if by_bytes else "operations",
+            "library_ms": per_step_sum(rows, dtype, f"{prefix}_library_ms"),
+        }
+
+    out = []
+    for name, prefix, source, how, lib in (
+            ("conv3_dgrad", "dx", "pcgcv2_torch/csrc/conv3_tc.cu",
+             "tc (conv3_tc.cu on flip_weight(W), mma.sync {})",
+             "torch.nn.grad.conv3d_input (cuDNN) on the live rows' halo"),
+            ("conv3_wgrad", "dw", "pcgcv2_torch/csrc/conv3_wgrad.cu",
+             "conv3_wgrad.cu (CUDA cores, f32 FMA, {} inputs)",
+             "torch.nn.grad.conv3d_weight (cuDNN) on the live rows' halo")):
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            # no Pallas original: XLA's VJP of blocks.conv3
+            "replaces": "pcgcv2_tpu/ops/blocks.py:656",
+            **entry(prefix, "float32"), "dtype": "float32",
+            "kernel_route": how.format("3xTF32" if prefix == "dx" else "f32"),
+            "bfloat16": {**entry(prefix, "bfloat16"), "source": source,
+                         "kernel_route": how.format("bf16")},
+            "library": lib, "per": "training step",
+        })
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -792,7 +1286,8 @@ def main(argv=None) -> int:
                 (4, "vox10", lambda: phase_vox10(device, workdir, card)),
                 (5, "profile", lambda: phase_profile(device, workdir)),
                 (6, "streamed", lambda: phase_streamed(device, workdir,
-                                                       card))):
+                                                       card)),
+                (7, "train", lambda: phase_train(device, workdir, card))):
             if n in phases:
                 t = time.perf_counter()
                 report[key] = run()
@@ -858,7 +1353,12 @@ def main(argv=None) -> int:
                 "kernel_route": "tc (conv3_tc.cu, mma.sync bf16)",
             },
             "library": "F.conv3d on the assembled halo (dense part only)",
+            "train_step_launches": report.get("train", {}).get(
+                "steps", {}).get("float32", {}).get("launches", {}).get(
+                    "fwd"),
         })
+    if "train" in report:
+        kernels += train_kernel_entries(report["train"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

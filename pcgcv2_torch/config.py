@@ -1,8 +1,10 @@
-"""Capacity plans and model configuration (own copy of pcgcv2_tpu/config.py).
+"""Capacity plans, model and training configuration (own copy of
+pcgcv2_tpu/config.py).
 
 `BlockPlan` sizes the block capacity of every scale of the dense-block
-backend; `ModelConfig` holds the architecture knobs.  Only the inference
-parts are copied: training plans wait for the training slice.
+backend; `ModelConfig` holds the architecture knobs; `TrainConfig` the
+training recipe.  The JAX package's `CapacityPlan` (row caps of the
+per-voxel backend) has no caller and is not copied.
 """
 
 from __future__ import annotations
@@ -83,6 +85,37 @@ class BlockPlan:
                    up_caps=up_caps)
 
     @classmethod
+    def for_training(
+        cls,
+        capacity: int,
+        res: int,
+        batch_size: int,
+        voxels_per_block: int = 20 * _BS * _BS // 64,
+        round_to: int = 256,
+    ) -> "BlockPlan":
+        """Plan for a training batch: `capacity` padded voxel rows across
+        `batch_size` items in a res^3 space.  Each scale's block cap is the
+        lesser of the worst-case cell count of its grid and the batch's
+        expected occupied blocks (capacity / voxels_per_block, decaying per
+        scale); the decoder caps are twice the encoder's (the training
+        prune keeps top-k union ground truth), clamped the same way."""
+
+        def g(s):  # blocks per axis at scale s
+            return max(1, -(-max(1, res >> s) // _BS))
+
+        per_item = max(256, capacity // max(batch_size, 1) // voxels_per_block)
+        ratios = (1.0, 0.4, 0.2, 0.125)
+        nb = []
+        for s, r in enumerate(ratios):
+            cells = batch_size * g(s) ** 3 + 1
+            want = _round_up(int(batch_size * per_item * r), round_to) + 1
+            nb.append(min(cells, want))
+        dec_nb = tuple(
+            min(2 * nb[i], batch_size * g(i) ** 3 + 1) for i in (2, 1, 0)
+        )
+        return cls(res=res, nb=tuple(nb), dec_nb=dec_nb)
+
+    @classmethod
     def for_frame(
         cls,
         res: int,
@@ -125,3 +158,23 @@ class ModelConfig:
     blocks_per_scale: int = 3
     entropy_filters: Tuple[int, ...] = (3, 3, 3)
     entropy_init_scale: float = 8.0
+    # Recompute whole encoder scales and decoder stages in the training
+    # backward (torch.utils.checkpoint) instead of keeping their interior
+    # activations; training only, the codec paths never checkpoint.
+    remat_training: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training recipe."""
+
+    alpha: float = 1.0          # distortion weight
+    beta: float = 1.0           # rate weight
+    lr: float = 8e-4
+    weight_decay: float = 1e-4  # L2 added to the gradients (Adam, not AdamW)
+    batch_size: int = 8
+    epochs: int = 50
+    lr_min: float = 1e-5        # floor of the per-epoch lr halving
+    lr_halve_every: int = 1     # epochs between lr halvings
+    check_time: float = 10.0    # minutes between mid-epoch snapshots
+    reset_optimizer_each_epoch: bool = True

@@ -1,4 +1,4 @@
-"""Three-scale sparse autoencoder, inference branch (twin of
+"""Three-scale sparse autoencoder (twin of
 pcgcv2_tpu/models/autoencoder.py).
 
 Encoder: per scale [3^3 conv -> 2x down-conv -> IRN blocks], channels
@@ -7,15 +7,22 @@ whose voxel counts are the decoder's top-k targets.
 
 Decoder: per stage [generative 2x up-conv -> 3^3 conv -> IRN blocks ->
 1-channel occupancy head -> top-k prune -> drop empty blocks], channels
-(8,64,32,16).  Capacities come from the BlockPlan passed at call time.
+(8,64,32,16).  In training the prune keeps top-k union ground truth, so
+gradients reach both false positives and false negatives.  Capacities come
+from the BlockPlan passed at call time.
+
+With `remat` (ModelConfig.remat_training), training runs each encoder
+scale and each decoder stage under torch.utils.checkpoint: only the grids
+between them are kept for the backward, the rest is recomputed.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pcgcv2_torch.config import BlockPlan
 from pcgcv2_torch.models.layers import (
@@ -29,12 +36,19 @@ from pcgcv2_torch.ops import blocks as B
 from pcgcv2_torch.ops.blocks import BlockGrid
 
 
+def _remat(fn, *args):
+    """fn(*args) with its interior activations recomputed in the backward
+    (non-reentrant: the arguments and results are BlockGrids)."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 class Encoder(nn.Module):
     def __init__(self, channels: Sequence[int] = (1, 16, 32, 64, 32, 8),
-                 blocks: int = 3):
+                 blocks: int = 3, remat: bool = True):
         super().__init__()
         ch = tuple(channels)
         self.blocks = blocks
+        self.remat = remat
         for s in range(3):
             # scale s reads the input (s = 0) or the previous IRN stack
             ci = ch[0] if s == 0 else ch[s + 1]
@@ -53,11 +67,14 @@ class Encoder(nn.Module):
             out = getattr(self, f"block{s}_{i}")(out, nbrs)
         return out
 
-    def forward(self, x: BlockGrid, plan: BlockPlan):
+    def forward(self, x: BlockGrid, plan: BlockPlan, training: bool = False):
         outs: List[BlockGrid] = []
         out = x
         for s in range(3):
-            out = self._scale(s, out, plan)
+            if training and self.remat:
+                out = _remat(self._scale, s, out, plan)
+            else:
+                out = self._scale(s, out, plan)
             outs.append(out)
         out2 = self.conv3(outs[2], B.neighbor_rows(outs[2]))
         # coarse -> fine, like the reference's [out2, out1, out0]
@@ -66,10 +83,11 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, channels: Sequence[int] = (8, 64, 32, 16),
-                 blocks: int = 3):
+                 blocks: int = 3, remat: bool = True):
         super().__init__()
         ch = tuple(channels)
         self.blocks = blocks
+        self.remat = remat
         for s in range(3):
             setattr(self, f"up{s}", BGenUp(ch[s], ch[s + 1]))
             setattr(self, f"conv{s}", BConv3(ch[s + 1], ch[s + 1]))
@@ -91,20 +109,34 @@ class Decoder(nn.Module):
         return out, cls
 
     def forward(self, y: BlockGrid, nums_list: Sequence[torch.Tensor],
-                plan: BlockPlan):
+                plan: BlockPlan,
+                gt_list: Optional[Sequence[BlockGrid]] = None,
+                training: bool = False):
         """Returns (pre-prune cls-logit grids per stage, final pruned grid).
-        """
+        In training `gt_list` holds the ground-truth grids (coarse to fine)
+        whose voxels the prune keeps beside the top-k."""
+        if training and gt_list is None:
+            raise ValueError("the training prune needs the ground truth")
         out = y
         out_cls_list: List[BlockGrid] = []
         for s in range(3):
-            cls, out = self.pruned_stage(s, out, nums_list[s], plan)
+            cls, out = self.pruned_stage(
+                s, out, nums_list[s], plan,
+                gt_list[s] if training else None, training)
             out_cls_list.append(cls)
         return out_cls_list, out
 
     def pruned_stage(self, s: int, bg: BlockGrid, nums: torch.Tensor,
-                     plan: BlockPlan) -> Tuple[BlockGrid, BlockGrid]:
-        """`stage`, then keep the top `nums` logits and drop the blocks
-        left empty: (cls logits, pruned grid at cap plan.dec_nb[s])."""
-        out, cls = self.stage(s, bg, plan.up_cap(s))
+                     plan: BlockPlan, gt: Optional[BlockGrid] = None,
+                     training: bool = False) -> Tuple[BlockGrid, BlockGrid]:
+        """`stage`, then keep the top `nums` logits (in training also the
+        voxels of `gt`) and drop the blocks left empty: (cls logits,
+        pruned grid at cap plan.dec_nb[s])."""
+        if training and self.remat:
+            out, cls = _remat(self.stage, s, bg, plan.up_cap(s))
+        else:
+            out, cls = self.stage(s, bg, plan.up_cap(s))
         keep = B.topk_mask(out, cls.feats[:, :, 0], nums)
+        if gt is not None:
+            keep = keep | B.isin(out, gt)
         return cls, B.compact(B.prune(out, keep), plan.dec_nb[s])

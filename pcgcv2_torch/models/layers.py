@@ -8,12 +8,14 @@ matmul block ops, 1^3 convs are a plain per-slot matmul.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from pcgcv2_torch.ops import blocks as B
 from pcgcv2_torch.ops.blocks import BlockGrid
-from pcgcv2_torch.ops.conv3 import conv3, pack_weight, route
+from pcgcv2_torch.ops.conv3 import conv3, flip_weight, pack_weight, route
 
 
 def relu(bg: BlockGrid) -> BlockGrid:
@@ -22,9 +24,12 @@ def relu(bg: BlockGrid) -> BlockGrid:
 
 class _Weighted(nn.Module):
     """A layer with `kernel` and `bias`, which it hands to its op in the
-    compute dtype: cast once per dtype (and again only when a parameter is
-    replaced or written in place), not on every call.  `_prepare` makes the
-    op's other form of the cast kernel under the same key."""
+    compute dtype, cast once per dtype and again only when a parameter is
+    replaced or written in place (an optimizer step), not on every call.
+    Where a gradient is wanted (grad enabled, parameters requiring it) the
+    cast is live and carries the gradient back to the parameters; under
+    `torch.inference_mode` or `torch.no_grad` it is detached.  `_prepare`
+    makes the op's other forms of the cast kernel under the same key."""
 
     def __init__(self, kernel_shape, co: int):
         super().__init__()
@@ -37,16 +42,33 @@ class _Weighted(nn.Module):
     def weights(self):
         cd = B.COMPUTE_DTYPE
         k, b = self.kernel, self.bias
-        key = (cd, k.data_ptr(), k._version, b.data_ptr(), b._version)
+        live = torch.is_grad_enabled() and (k.requires_grad
+                                            or b.requires_grad)
+        key = (cd, live, k.data_ptr(), k._version, b.data_ptr(), b._version)
         if key != self._cast_key:
-            kc = k.detach().to(cd).contiguous()
-            self._cast = (kc, b.detach().to(cd).contiguous())
-            self._prepared = self._prepare(kc)
+            if not live:
+                k, b = k.detach(), b.detach()
+            kc = k.to(cd).contiguous()
+            self._cast = (kc, b.to(cd).contiguous())
+            self._prepared = self._prepare(kc.detach())
             self._cast_key = key
         return self._cast
 
     def _prepare(self, kernel: torch.Tensor):
         return None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Training from scratch, with the JAX package's initializers: the
+        kernel uniform in +-sqrt(6 / fan_in) (flax variance_scaling(2.0,
+        "fan_in", "uniform"), fan_in the product of all but the last
+        dimension), the bias zero."""
+        fan_in = math.prod(self.kernel.shape[:-1])
+        limit = math.sqrt(6.0 / fan_in)
+        with torch.no_grad():
+            u = torch.rand(self.kernel.shape, generator=generator,
+                           device=self.kernel.device)
+            self.kernel.copy_((2 * u - 1) * limit)
+            self.bias.zero_()
 
 
 class BConv3(_Weighted):
@@ -54,8 +76,10 @@ class BConv3(_Weighted):
 
     def __init__(self, ci: int, co: int):
         super().__init__((3, 3, 3, ci, co), co)
+        self._flip = None
 
     def _prepare(self, kernel: torch.Tensor):
+        self._flip = None  # packed again when a backward first needs it
         ci, co = kernel.shape[3], kernel.shape[4]
         if route(ci, co, kernel.dtype) == "tc":
             return pack_weight(kernel)
@@ -68,9 +92,20 @@ class BConv3(_Weighted):
         self.weights()
         return self._prepared
 
+    def packed_flip(self):
+        """`pack_weight(flip_weight(kernel))` of the cast kernel, the
+        weight of the input gradient, where the tensor cores take it (else
+        None): packed once per cast, so once per optimizer step."""
+        kc = self.weights()[0].detach()
+        ci, co = kc.shape[3], kc.shape[4]
+        if self._flip is None and route(co, ci, kc.dtype) == "tc":
+            self._flip = pack_weight(flip_weight(kc))
+        return self._flip
+
     def forward(self, bg: BlockGrid, nbrs: torch.Tensor) -> BlockGrid:
         k, b = self.weights()
-        return conv3(bg, nbrs, k, b, packed=self._prepared)
+        flip = self.packed_flip() if torch.is_grad_enabled() else None
+        return conv3(bg, nbrs, k, b, packed=self._prepared, packed_flip=flip)
 
 
 class BConv1(_Weighted):

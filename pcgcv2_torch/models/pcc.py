@@ -1,5 +1,5 @@
-"""PCCModel — encoder + entropy bottleneck + decoder, inference entry
-points (twin of pcgcv2_tpu/models/pcc.py).
+"""PCCModel — encoder + entropy bottleneck + decoder: the training forward
+and the codec's entry points (twin of pcgcv2_tpu/models/pcc.py).
 
 The module holds the weights only; block capacities come from the
 BlockPlan each call receives (the JAX module baked it in as a static
@@ -8,7 +8,7 @@ attribute because jit needs static shapes).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -26,10 +26,21 @@ class PCCModel(nn.Module):
         super().__init__()
         self.config = config
         self.num_batches = num_batches
-        self.encoder = Encoder(config.enc_channels, config.blocks_per_scale)
-        self.decoder = Decoder(config.dec_channels, config.blocks_per_scale)
+        self.encoder = Encoder(config.enc_channels, config.blocks_per_scale,
+                               remat=config.remat_training)
+        self.decoder = Decoder(config.dec_channels, config.blocks_per_scale,
+                               remat=config.remat_training)
         self.entropy_bottleneck = EntropyBottleneck(
-            config.enc_channels[-1], config.entropy_filters)
+            config.enc_channels[-1], config.entropy_filters,
+            config.entropy_init_scale)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Random initialization for training from scratch, with the JAX
+        package's initializers (layers.py, entropy.py), drawn from
+        `generator` layer by layer in module order."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "init_weights"):
+                m.init_weights(generator)
 
     def blockify(self, coords: torch.Tensor, valid: torch.Tensor,
                  plan: BlockPlan, dtype=torch.float32) -> BlockGrid:
@@ -39,6 +50,37 @@ class PCCModel(nn.Module):
             coords, valid[:, None].to(dtype), valid, plan.nb[0], stride=1,
             res=plan.res, num_batches=self.num_batches,
         )
+
+    def forward(self, coords: torch.Tensor, valid: torch.Tensor,
+                plan: BlockPlan, training: bool = True,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """The training / evaluation forward: blockify (f32 storage) ->
+        encoder -> noise quantization (training; from `generator`, or the
+        given `noise` [nb_cap * VOL, C]) or rounding (evaluation) ->
+        decoder.  Unoccupied bottleneck slots get likelihood 1 (0 bits).
+        Returns the keys of the JAX package's __call__: out, out_cls_list,
+        prior, likelihood, ground_truth_list, nums_list."""
+        x = self.blockify(coords, valid, plan)
+        y, out1, out0 = self.encoder(x, plan, training)
+        ground_truth_list = [out1, out0, x]
+        nums_list = [gt.voxels_per_batch() for gt in ground_truth_list]
+        y_f, likelihood = self.entropy_bottleneck(
+            y.feats.reshape(-1, y.channels),
+            "noise" if training else "symbols", generator, noise)
+        likelihood = torch.where(y.mask.reshape(-1, 1), likelihood, 1.0)
+        y_q = y.with_feats(y_f.reshape(y.nb_cap, B.VOL, y.channels))
+        out_cls_list, out = self.decoder(
+            y_q, nums_list, plan,
+            ground_truth_list if training else None, training)
+        return {
+            "out": out,
+            "out_cls_list": out_cls_list,
+            "prior": y_q,
+            "likelihood": likelihood.reshape(y.nb_cap, B.VOL, y.channels),
+            "ground_truth_list": ground_truth_list,
+            "nums_list": nums_list,
+        }
 
     def encode_fn(self, coords: torch.Tensor, valid: torch.Tensor,
                   plan: BlockPlan):

@@ -258,6 +258,14 @@ def blockify(
     )
 
 
+def slot_coords(bg: BlockGrid) -> torch.Tensor:
+    """Voxel coords of every slot: int32 [nb_cap, VOL, 4] (batch, x, y, z)."""
+    local = _local_xyz(_arange(VOL, bg.device))  # [VOL, 3]
+    xyz = (bg.coords[:, None, 1:].long() * BS + local[None]) * bg.stride
+    b = bg.coords[:, None, :1].long().expand(bg.nb_cap, VOL, 1)
+    return torch.cat([b, xyz], dim=-1).to(torch.int32)
+
+
 def _local_xyz(slot: torch.Tensor) -> torch.Tensor:
     return torch.stack([slot // (BS * BS), (slot // BS) % BS, slot % BS],
                        dim=-1)
@@ -624,3 +632,24 @@ def compact_where(bg: BlockGrid, block_keep: torch.Tensor,
     streamed decode cuts its x-slabs (plus a 1-block halo) this way."""
     m = bg.mask & (block_keep & bg.valid)[:, None]
     return compact(bg.replace(mask=m), nb_cap_out)
+
+
+# ---------------------------------------------------------------------------
+# Set membership (ground-truth occupancy lookups)
+# ---------------------------------------------------------------------------
+
+
+def isin(bg: BlockGrid, gt: BlockGrid) -> torch.Tensor:
+    """bool [nb_cap, VOL]: slot-wise membership of bg's voxels in gt.
+
+    Both grids must be at the same stride and res.  One block-level table
+    gather per query block; a table miss reads gt's sentinel row, and the
+    coords check keeps a miss from aliasing a real block."""
+    if bg.res != gt.res or bg.stride != gt.stride:
+        raise ValueError(
+            f"isin needs grids at one scale: res {bg.res} / {gt.res}, "
+            f"stride {bg.stride} / {gt.stride}")
+    key = _flat_block_key(bg.coords, bg.G)
+    rows = torch.where(bg.valid, gt.table.long()[key], gt.nb_cap - 1)
+    same = (gt.coords[rows] == bg.coords).all(dim=-1) & (rows < gt.count)
+    return bg.mask & gt.mask[rows] & (same & bg.valid)[:, None]

@@ -25,13 +25,27 @@ What bounds it on the H100: at the checkpoint's channel pairs the dense
 block conv does 6-860 FLOP per byte moved, so it is bound by arithmetic
 except for the co = 1 occupancy heads.  Both kernels fuse bias, bf16
 rounding and the occupancy mask into the epilogue and write rows >= count
-as zeros without arithmetic.  `conv3.launches` counts every launch,
-`conv3.tc_launches` those of the tensor-core kernel.
+as zeros without arithmetic.  `conv3.launches` counts every forward
+launch, `conv3.tc_launches` those of the tensor-core kernel.
 
 `conv3_plain` assembles the (BS+2)^3 halo with one gather and runs the 27
 tap matmuls with float32 accumulation.  The TPU lane devices (ci -> 16
 padding, banded z-fold weights, chunking) are dropped: none of them changes
 the result.
+
+The backward (`Conv3Fn`, which `conv3` runs through whenever a gradient is
+wanted) replaces XLA's VJP of pcgcv2_tpu/ops/blocks.py::conv3; the JAX
+package has no backward kernel.  With dy the output gradient taken at the
+live slots (occupied slots of rows < count, where the forward wrote):
+
+* dX is a forward conv3 of dy with `flip_weight(W)` (`conv3_dgrad`): the
+  same kernels, so on the card it runs on conv3_tc.cu.  Like the forward
+  it writes only live slots: every producer of a conv3 input in the model
+  masks its output (`BlockGrid.with_feats`), so the gradient at the other
+  slots would be discarded upstream anyway;
+* dW is csrc/conv3_wgrad.cu (`conv3_wgrad`), on the CUDA cores, with
+  `conv3_wgrad_plain` as its plain version;
+* dbias is one masked sum.
 """
 
 from __future__ import annotations
@@ -52,9 +66,9 @@ from pcgcv2_torch.ops import blocks as B
 HS = B.BS + 2  # halo side
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SRCS = (_CSRC / "conv3.cu", _CSRC / "conv3_tc.cu")
+_SRCS = (_CSRC / "conv3.cu", _CSRC / "conv3_tc.cu", _CSRC / "conv3_wgrad.cu")
 _BUILD_DIR = _CSRC / "build"
-_CHANNELS = (1, 4, 8, 16, 32, 64)  # co of both kernels; ci of "tc"
+_CHANNELS = (1, 4, 8, 16, 32, 64)  # co of the kernels; ci of "tc", wgrad
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
@@ -71,10 +85,11 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/conv3.cu and csrc/conv3_tc.cu (one nvcc per source, run
-    together) and link them into one plain C-interface shared library.
+    """Compile csrc/conv3.cu, conv3_tc.cu and conv3_wgrad.cu (one nvcc per
+    source, run together) and link them into one plain C-interface shared
+    library.
 
-    The library name carries a hash of both sources and the flags, so a
+    The library name carries a hash of the sources and the flags, so a
     changed source is rebuilt and parallel builds never clobber each
     other's half-written files (each writes private temp files, then
     renames).  `verbose` prints nvcc's `-Xptxas -v` report."""
@@ -94,7 +109,7 @@ def build(verbose: bool = False) -> Path:
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
              for src, obj in zip(_SRCS, objs)]
-    errs = [p.communicate()[1] for p in procs]  # waits for both
+    errs = [p.communicate()[1] for p in procs]  # waits for all
     for src, p, err in zip(_SRCS, procs, errs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed building {src}:\n{err}")
@@ -118,7 +133,8 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp = ctypes.c_void_p
             ci = ctypes.c_int
-            for fn in (lib.pcgc_conv3, lib.pcgc_conv3_tc):
+            for fn in (lib.pcgc_conv3, lib.pcgc_conv3_tc,
+                       lib.pcgc_conv3_wgrad):
                 fn.restype = ci
                 fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
             _lib = lib
@@ -335,14 +351,12 @@ def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
-def launch(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
-           weight: torch.Tensor, bias: Optional[torch.Tensor], cd,
-           packed: Optional[torch.Tensor] = None) -> B.BlockGrid:
-    """Launch one conv3 kernel ("tc" or "simt") on CUDA tensors, or raise.
-
-    `conv3` calls it with `route`'s choice; it is public so that a check
-    can time both kernels at one shape.  Counts every launch in
-    `conv3.launches` and the tensor-core ones in `conv3.tc_launches`."""
+def _run(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
+         weight: torch.Tensor, bias: Optional[torch.Tensor], cd,
+         packed: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch one conv3 kernel ("tc" or "simt") on CUDA tensors, or raise;
+    returns the output feats [nb, VOL, co] in the compute dtype (masked,
+    rows >= count zero).  Counts nothing: its callers do."""
     dev = bg.feats.device
     if dev.type != "cuda":
         raise ValueError(f"conv3 kernels run on cuda tensors, not {dev}")
@@ -364,6 +378,18 @@ def launch(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"conv3 {kernel} kernel launch failed (code {rc}) "
                            f"at nb={nb} ci={ci} co={co} dtype={cd}")
+    return out
+
+
+def launch(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
+           weight: torch.Tensor, bias: Optional[torch.Tensor], cd,
+           packed: Optional[torch.Tensor] = None) -> B.BlockGrid:
+    """Launch one conv3 kernel ("tc" or "simt") on CUDA tensors, or raise.
+
+    `conv3` calls it with `route`'s choice; it is public so that a check
+    can time both kernels at one shape.  Counts every launch in
+    `conv3.launches` and the tensor-core ones in `conv3.tc_launches`."""
+    out = _run(kernel, bg, nbrs, weight, bias, cd, packed)
     conv3.launches += 1
     conv3.tc_launches += kernel == "tc"
     # the kernel applied the mask and zeroed rows >= count (with_feats)
@@ -377,22 +403,200 @@ def conv3(
     bias: Optional[torch.Tensor] = None,
     compute_dtype=None,
     packed: Optional[torch.Tensor] = None,
+    packed_flip: Optional[torch.Tensor] = None,
 ) -> B.BlockGrid:
     """3^3 stride-1 sparse convolution of `bg` with weight [3,3,3,ci,co].
 
     CPU tensors take `conv3_plain`; CUDA tensors launch the kernel that
     `route` picks, or raise.  On CUDA, weight and bias must already be
     contiguous in the compute dtype, and the "tc" route also needs
-    `packed = pack_weight(weight)`."""
+    `packed = pack_weight(weight)`.  Where a gradient is wanted (grad
+    enabled, and feats, weight or bias requiring it) the call runs through
+    `Conv3Fn`, whose backward takes `packed_flip =
+    pack_weight(flip_weight(weight))` where it is given."""
     cd = compute_dtype or B.COMPUTE_DTYPE
     dev = bg.feats.device
-    if dev.type == "cpu":
-        return conv3_plain(bg, nbrs, weight, bias, cd)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3 runs on cpu or cuda tensors, not {dev}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (bg.feats, weight, bias)):
+        feats = Conv3Fn.apply(bg.feats, weight, bias, bg, nbrs, cd, packed,
+                              packed_flip)
+        return bg.replace(feats=feats)
+    return _conv3(bg, nbrs, weight, bias, cd, packed)
+
+
+def _conv3(bg, nbrs, weight, bias, cd, packed) -> B.BlockGrid:
+    if bg.feats.device.type == "cpu":
+        return conv3_plain(bg, nbrs, weight, bias, cd)
     kernel = route(bg.channels, weight.shape[-1], cd)
     return launch(kernel, bg, nbrs, weight, bias, cd, packed)
 
 
 conv3.launches = 0
 conv3.tc_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+
+def flip_weight(weight: torch.Tensor) -> torch.Tensor:
+    """W'[dx, dy, dz] = W[2-dx, 2-dy, 2-dz]^T (ci and co swapped): the
+    weight whose forward conv3 is conv3's input gradient."""
+    return weight.flip(0, 1, 2).transpose(3, 4).contiguous()
+
+
+def _live(bg: B.BlockGrid) -> torch.Tensor:
+    """bool [nb_cap, VOL]: the occupied slots of the rows < count."""
+    return bg.mask & bg.valid[:, None]
+
+
+def conv3_dgrad(bg: B.BlockGrid, nbrs: torch.Tensor, weight: torch.Tensor,
+                compute_dtype=None,
+                packed_flip: Optional[torch.Tensor] = None) -> B.BlockGrid:
+    """conv3's input gradient at the live slots: `bg.feats` holds dy (zero
+    outside the live slots) and `weight` the forward's [3,3,3,ci,co]
+    kernel; returns the grid with feats dX [nb_cap, VOL, ci].
+
+    It is the forward conv3 of dy with `flip_weight(weight)`: CPU tensors
+    take `conv3_plain`, CUDA tensors the routed kernel for (co, ci), the
+    "tc" route with `packed_flip = pack_weight(flip_weight(weight))` (the
+    layers pack it once per step).  Counts its launches in
+    `conv3_dgrad.launches` (the tensor-core ones in
+    `conv3_dgrad.tc_launches`), not in `conv3.launches`."""
+    cd = compute_dtype or B.COMPUTE_DTYPE
+    wf = flip_weight(weight)
+    if bg.feats.device.type == "cpu":
+        return conv3_plain(bg, nbrs, wf, None, cd)
+    kernel = route(bg.channels, wf.shape[-1], cd)
+    out = _run(kernel, bg, nbrs, wf, None, cd, packed_flip)
+    conv3_dgrad.launches += 1
+    conv3_dgrad.tc_launches += kernel == "tc"
+    return bg.replace(feats=out.to(bg.feats.dtype))
+
+
+conv3_dgrad.launches = 0
+conv3_dgrad.tc_launches = 0
+
+
+def conv3_wgrad_plain(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
+                      compute_dtype=None) -> torch.Tensor:
+    """Plain PyTorch weight gradient of conv3, f32 [3, 3, 3, ci, co]:
+    dW[tap] = sum over the live slots v of halo[v + tap]^T dy[v], the halo
+    gathered as `halo` does, both inputs rounded to the compute dtype, 27
+    matmuls in f32.  Only the `count` valid rows are read."""
+    cd = compute_dtype or B.COMPUTE_DTYPE
+    n = int(bg.count)
+    ci, co = bg.channels, dy.shape[-1]
+    g = torch.where(_live(bg)[:n, :, None], dy[:n], 0)
+    g = g.to(cd).float().reshape(n * B.VOL, co)
+    h = halo(bg.feats, nbrs[:n]).to(cd).float()
+    dw = torch.empty(3, 3, 3, ci, co, dtype=torch.float32,
+                     device=bg.feats.device)
+    for dx in range(3):
+        for dy_ in range(3):
+            for dz in range(3):
+                win = h[:, dx:dx + B.BS, dy_:dy_ + B.BS, dz:dz + B.BS]
+                dw[dx, dy_, dz] = win.reshape(-1, ci).T @ g
+    return dw
+
+
+def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
+                compute_dtype=None) -> torch.Tensor:
+    """conv3's weight gradient, f32 [3, 3, 3, ci, co], from the input grid
+    `bg` and the output gradient dy [nb_cap, VOL, co], read at the live
+    slots only.  CPU tensors take `conv3_wgrad_plain`; CUDA tensors launch
+    csrc/conv3_wgrad.cu (ci and co in {1, 4, 8, 16, 32, 64}) or raise.
+    Counts launches in `conv3_wgrad.launches`."""
+    cd = compute_dtype or B.COMPUTE_DTYPE
+    dev = bg.feats.device
+    if dev.type == "cpu":
+        return conv3_wgrad_plain(bg, dy, nbrs, cd)
+    if dev.type != "cuda":
+        raise ValueError(f"conv3_wgrad runs on cpu or cuda tensors, not {dev}")
+    nb, ci, co = bg.nb_cap, bg.channels, dy.shape[-1]
+    if B.BS != 16:
+        raise NotImplementedError(
+            f"the conv3_wgrad kernel is written for 16^3 blocks, not BS={B.BS}")
+    if cd not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv3_wgrad takes float32 or bfloat16, not {cd}")
+    if ci not in _CHANNELS or co not in _CHANNELS:
+        raise NotImplementedError(
+            f"conv3_wgrad has no instance for ci={ci} co={co}; "
+            f"supported: {_CHANNELS}")
+    if tuple(dy.shape) != (nb, B.VOL, co):
+        raise ValueError(f"dy {tuple(dy.shape)} does not match the grid's "
+                         f"[{nb}, {B.VOL}, co]")
+    if tuple(nbrs.shape) != (nb, 3, 3, 3) or nbrs.dtype != torch.int32:
+        raise ValueError(
+            f"nbrs must be int32 [{nb}, 3, 3, 3], got {nbrs.dtype} "
+            f"{tuple(nbrs.shape)}")
+    if tuple(bg.mask.shape) != (nb, B.VOL) or bg.mask.dtype != torch.bool:
+        raise ValueError("mask must be bool [nb, VOL]")
+    if bg.count.dtype != torch.int32 or bg.count.numel() != 1:
+        raise ValueError("count must be an int32 scalar tensor")
+    for name, t in (("dy", dy), ("nbrs", nbrs), ("mask", bg.mask),
+                    ("count", bg.count)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, feats on {dev}")
+    x = _aligned(bg.feats.to(cd), 16)
+    g = _aligned(dy.to(cd), 16)
+    nbrs = nbrs.contiguous()
+    mask = _aligned(bg.mask, 16)
+    part = torch.empty((nb, 27, ci, co), dtype=torch.float32, device=dev)
+    out = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
+    rc = _load().pcgc_conv3_wgrad(
+        x.data_ptr(), g.data_ptr(), nbrs.data_ptr(), mask.data_ptr(),
+        bg.count.data_ptr(), part.data_ptr(), out.data_ptr(), nb, ci, co,
+        int(cd == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3_wgrad kernel launch failed (code {rc}) "
+                           f"at nb={nb} ci={ci} co={co} dtype={cd}")
+    conv3_wgrad.launches += 1
+    return out
+
+
+conv3_wgrad.launches = 0
+
+
+class Conv3Fn(torch.autograd.Function):
+    """conv3 with its backward: the forward of `_conv3`, then dX by
+    `conv3_dgrad`, dW by `conv3_wgrad` and dbias by a masked sum, all from
+    dy masked to the live slots (the forward zeroed every other output,
+    but the gradient arriving there from concatenations, residual adds or
+    `where`s downstream need not be zero).  dy is cast to the compute
+    dtype as the forward cast its input; dX comes back in the input's
+    dtype, dW and dbias in the dtypes of the weight and bias received."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, bias, bg, nbrs, cd, packed, packed_flip):
+        out = _conv3(bg.replace(feats=feats), nbrs, weight, bias, cd,
+                     packed).feats
+        # the structure goes through save_for_backward too, so that a
+        # checkpointed region (remat) frees and recomputes it
+        ctx.save_for_backward(feats, weight, bias, nbrs, bg.coords, bg.mask,
+                              bg.table, bg.count)
+        ctx.meta = (cd, packed_flip, bg.stride, bg.res, bg.num_batches)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weight, bias, nbrs, coords, mask, table, count = \
+            ctx.saved_tensors
+        cd, packed_flip, stride, res, num_batches = ctx.meta
+        grid = B.BlockGrid(coords=coords, feats=feats, mask=mask, table=table,
+                           count=count, dropped=count,  # not read
+                           stride=stride, res=res, num_batches=num_batches)
+        gm = torch.where(_live(grid)[:, :, None], g, 0).to(cd)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3_dgrad(grid.replace(feats=gm), nbrs, weight, cd,
+                             packed_flip).feats.to(feats.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = conv3_wgrad(grid, gm, nbrs, cd).to(weight.dtype)
+        if bias is not None and ctx.needs_input_grad[2]:
+            db = gm.float().sum(dim=(0, 1)).to(bias.dtype)
+        return dx, dw, db, None, None, None, None, None

@@ -1,0 +1,247 @@
+"""Training loop (twin of pcgcv2_tpu/train/trainer.py).
+
+The recipe of the JAX package:
+  * loss = alpha * sum of the per-scale BCE + beta * bpp;
+  * Adam(0.9, 0.999) with weight decay 1e-4 added to the gradient before
+    the moments (torch.optim.Adam's weight_decay: the optax chain
+    add_decayed_weights -> scale_by_adam -> scale(-lr), not AdamW);
+  * the optimizer state reset at the first step of every epoch, and the
+    lr halved every `lr_halve_every` epochs, floored at lr_min;
+  * weights-only checkpoints in the flax msgpack layout (`save_params`,
+    `load_params`: the two packages read each other's), and the full train
+    state (`save_state` / `restore_state`, a package-local torch.save file)
+    for an exact resume.
+
+One step (`Trainer.step`) runs the forward with noise quantization, the
+top-k union ground-truth prune, the loss and metrics, the backward (conv3's
+through its CUDA kernels on the card) and the Adam update.  The training
+noise comes from one torch.Generator on the trainer's device, seeded from
+`seed`: its numbers are not the JAX PRNG's.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from pcgcv2_torch import checkpoint
+from pcgcv2_torch.config import BlockPlan, ModelConfig, TrainConfig
+from pcgcv2_torch.data.voxelize import collate
+from pcgcv2_torch.models.pcc import PCCModel
+from pcgcv2_torch.ops.blocks import resolve_device
+from pcgcv2_torch.train.loss import cls_metrics, rd_loss
+
+
+def get_logger(logdir: str) -> logging.Logger:
+    """File (logdir/log.txt) + console logger."""
+    os.makedirs(logdir, exist_ok=True)
+    logger = logging.getLogger(f"pcgcv2_torch.{logdir}")
+    logger.setLevel(logging.INFO)
+    if not logger.handlers:
+        fmt = logging.Formatter("%(asctime)s: %(message)s",
+                                datefmt="%m/%d %H:%M:%S")
+        fh = logging.FileHandler(os.path.join(logdir, "log.txt"))
+        fh.setFormatter(fmt)
+        ch = logging.StreamHandler()
+        ch.setFormatter(fmt)
+        logger.addHandler(fh)
+        logger.addHandler(ch)
+    return logger
+
+
+def make_optimizer(params, lr: float, weight_decay: float):
+    """Adam with L2 weight decay added to the gradients (the JAX package's
+    add_decayed_weights -> scale_by_adam -> scale(-lr))."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+
+
+def save_params(path: str, model: torch.nn.Module) -> None:
+    """Weights-only checkpoint of `model` in the flax msgpack layout."""
+    checkpoint.save_params(path, checkpoint.params_to_jax(model))
+
+
+def load_params(path: str, model: Optional[torch.nn.Module] = None):
+    """A weights-only checkpoint (either package's): the nested tree of
+    numpy arrays, or, given `model`, loaded into it (strict)."""
+    tree = checkpoint.load_params(path)
+    return tree if model is None else checkpoint.load_into(model, tree)
+
+
+class Trainer:
+    """Single-device trainer.
+
+    plan: BlockPlan sized for the training batch; capacity: padded voxel
+    rows of one collated batch.  Runs on the card unless `device` asks for
+    the CPU, and raises when no card is present."""
+
+    def __init__(
+        self,
+        config: TrainConfig,
+        plan: BlockPlan,
+        capacity: int,
+        model_config: ModelConfig = ModelConfig(),
+        logdir: str = "./logs/tp",
+        ckptdir: str = "./ckpts/tp",
+        init_ckpt: str = "",
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.config = config
+        self.plan = plan
+        self.capacity = capacity
+        self.logdir = logdir
+        self.ckptdir = ckptdir
+        os.makedirs(ckptdir, exist_ok=True)
+        self.logger = get_logger(logdir)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.model = PCCModel(model_config, num_batches=config.batch_size)
+        self.model.to(self.device)
+        if init_ckpt:
+            load_params(init_ckpt, self.model)
+            self.logger.info(f"Load checkpoint from {init_ckpt}")
+        else:
+            self.model.init_weights(self.generator)
+            self.logger.info("Random initialization.")
+        self.epoch = 0
+        self.lr = config.lr
+        self.optimizer = self._new_optimizer()
+        self.record_set: Dict[str, List] = {
+            "bce": [], "bces": [], "bpp": [], "sum_loss": [], "metrics": []
+        }
+
+    def _new_optimizer(self):
+        return make_optimizer(self.model.parameters(), self.lr,
+                              self.config.weight_decay)
+
+    def _collate(self, coords_list: Sequence[np.ndarray]):
+        coords, valid = collate(coords_list, capacity=self.capacity)
+        return (torch.from_numpy(coords).to(self.device),
+                torch.from_numpy(valid).to(self.device))
+
+    def _metrics(self, out) -> torch.Tensor:
+        with torch.no_grad():
+            return torch.stack([
+                cls_metrics(c, g) for c, g in
+                zip(out["out_cls_list"], out["ground_truth_list"])])
+
+    def step(self, coords: torch.Tensor, valid: torch.Tensor):
+        """One training step on a collated batch at the current lr: (the
+        rd_loss terms, [3 scales, precision / recall / IoU], dropped)."""
+        out = self.model(coords, valid, self.plan, training=True,
+                         generator=self.generator)
+        d = rd_loss(out, self.config.alpha, self.config.beta, "train")
+        mets = self._metrics(out)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr
+        self.optimizer.zero_grad(set_to_none=True)
+        d["loss"].backward()
+        self.optimizer.step()
+        return ({k: v.detach() for k, v in d.items()}, mets,
+                out["out"].dropped)
+
+    # --- bookkeeping --------------------------------------------------------
+
+    def _record_step(self, d, mets) -> None:
+        bce, bpp = float(d["bce"]), float(d["bpp"])
+        self.record_set["bce"].append(bce)
+        self.record_set["bces"].append(d["bces"].cpu().numpy())
+        self.record_set["bpp"].append(bpp)
+        self.record_set["sum_loss"].append(bce + bpp)
+        self.record_set["metrics"].append(mets.cpu().numpy())
+
+    def record(self, tag: str, step: int):
+        self.logger.info("=" * 10 + f"{tag} Epoch {self.epoch} Step {step}")
+        for k, v in self.record_set.items():
+            if v:
+                mean = np.mean(np.array(v), axis=0)
+                self.logger.info(f"{k}: {np.round(mean, 4).tolist()}")
+        for k in self.record_set:
+            self.record_set[k] = []
+
+    def save_model(self, name: Optional[str] = None) -> str:
+        """Weights-only release checkpoint (flax msgpack layout)."""
+        path = os.path.join(self.ckptdir, name or f"epoch_{self.epoch}.ckpt")
+        save_params(path, self.model)
+        return path
+
+    def save_state(self, name: str = "train_state.ckpt") -> str:
+        """The full train state for an exact resume: parameters, optimizer
+        moments, epoch, lr and the noise generator's state."""
+        path = os.path.join(self.ckptdir, name)
+        torch.save({
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "epoch": self.epoch,
+            "lr": self.lr,
+            "rng": self.generator.get_state(),
+        }, path)
+        return path
+
+    def restore_state(self, path: str) -> None:
+        """Inverse of save_state."""
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        self.model.load_state_dict(state["model"])
+        self.optimizer = self._new_optimizer()
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.epoch = int(state["epoch"])
+        self.lr = float(state["lr"])
+        self.generator.set_state(state["rng"])
+
+    # --- loops --------------------------------------------------------------
+
+    def train(self, batches: Iterable[Sequence[np.ndarray]]):
+        """One epoch over an iterable of batches (lists of [N, 3] coords)."""
+        self.logger.info("=" * 40 + f"\nTraining Epoch: {self.epoch}")
+        if self.epoch > 0 and self.epoch % self.config.lr_halve_every == 0:
+            self.lr = max(self.lr / 2, self.config.lr_min)
+        start_time = time.time()
+        n_steps = 0
+        for batch_step, coords_list in enumerate(batches):
+            total = sum(len(c) for c in coords_list)
+            if total > self.capacity:
+                self.logger.info(
+                    f"skip oversized batch ({total} > {self.capacity})")
+                continue
+            coords, valid = self._collate(coords_list)
+            if batch_step == 0 and self.config.reset_optimizer_each_epoch:
+                self.optimizer = self._new_optimizer()
+            d, mets, n_drop = self.step(coords, valid)
+            n_steps += 1
+            if int(n_drop):
+                # nonzero: the step ran on geometry cut by a block cap; the
+                # parameters already took the update, so say so loudly
+                self.logger.warning(
+                    f"step dropped {int(n_drop)} occupied blocks "
+                    f"(plan {self.plan} too small for this batch) — "
+                    f"this step trained on corrupted geometry; raise the "
+                    f"BlockPlan capacities")
+            self._record_step(d, mets)
+            if time.time() - start_time > self.config.check_time * 60:
+                self.record("Train", self.epoch * 10000 + batch_step)
+                self.save_model()
+                start_time = time.time()
+        if n_steps:
+            self.record("Train", self.epoch * 10000 + n_steps)
+            self.save_model()
+        self.epoch += 1
+
+    def test(self, batches: Iterable[Sequence[np.ndarray]],
+             tag: str = "Test"):
+        """Evaluation (rounding, top-k prune, 'test' normalization)."""
+        with torch.no_grad():
+            for coords_list in batches:
+                if sum(len(c) for c in coords_list) > self.capacity:
+                    continue
+                coords, valid = self._collate(coords_list)
+                out = self.model(coords, valid, self.plan, training=False)
+                d = rd_loss(out, self.config.alpha, self.config.beta, "test")
+                self._record_step(d, self._metrics(out))
+        self.record(tag, self.epoch)

@@ -205,3 +205,34 @@ def test_prune_compact(nb_cap_out):
     assert_same_grid(jc, tc, exact_feats=True)
     assert (int(tc.dropped) > 0) == (nb_cap_out == 6)
 
+
+
+def test_port_drops_voxels_and_blocks_outside_the_grid():
+    """A deliberate difference from the JAX package, pinned here: the
+    port's blockify drops voxels whose block lies outside the block grid
+    (grid_dim(res) blocks per axis; a voxel past res inside the last block
+    stays), and conv_up_generative drops child blocks outside the finer
+    grid.  Neither counts them in `dropped`, which reads capacity overflow
+    only.  The JAX twins have no range check (such a block key aliases
+    another cell of the dense table); inputs inside res are not affected."""
+    # a stride-2 grid of res 24 (grid coords): grid_dim 2, so blocks 0 and
+    # 1 per axis, grid coords 0..31
+    grid = np.array([[0, 1, 2, 3], [0, 20, 5, 5], [0, 28, 5, 5],
+                     [0, 32, 5, 5], [0, -1, 5, 5], [0, 5, 40, 5]], np.int32)
+    pts = grid * np.array([1, 2, 2, 2], np.int32)  # voxel coords
+    valid = np.ones(len(pts), bool)
+    feats = np.ones((len(pts), 1), np.float32)
+    t = TB.blockify(_t(pts), _t(feats), _t(valid), nb_cap=16, stride=2,
+                    res=24, num_batches=1)
+    assert int(t.dropped) == 0 and int(t.count) == 2
+    coords, _, n = TB.extract(t, 16, with_feats=False)
+    kept = {tuple(c) for c in (coords[:int(n), 1:] // 2).tolist()}
+    assert kept == {(1, 2, 3), (20, 5, 5), (28, 5, 5)}
+    # children 2p + (0|1) on the stride-1 grid of res 48 (grid_dim 3):
+    # those of p = 28 (56, 57) fall in its block 3 and are dropped; those
+    # of p = 1 and 20 stay
+    up = TB.conv_up_generative(t, torch.ones(8, 1, 1), None, 16)
+    assert int(up.dropped) == 0 and int(up.voxel_count()) == 16
+    coords, _, n = TB.extract(up, 64, with_feats=False)
+    xs = coords[:int(n), 1]
+    assert int(xs.max()) == 41 and not bool(((xs >= 48)).any())
