@@ -36,11 +36,11 @@ Phases (each prints its own lines; any failure exits non-zero):
         count, bpp and D1 against the golden triple.
   7. training (a batch of 8 random_surface_cloud(127, seed=s, density=2)
      clouds, 327,003 voxels, BlockPlan.for_training(524288, 128, 8)):
-     a. conv3's backward kernels against autograd through conv3_plain at
-        every conv3 shape of a full-width training step, on grids of that
-        batch, f32 and bf16: dX (conv3_tc.cu on the flipped weight) and dW
-        (conv3_wgrad.cu), with kernel / plain / library (cuDNN through
-        torch.nn.grad) times and the bound;
+     a. one full-width training step per dtype (f32, bf16) with every
+        conv3 backward spied on: dX (conv3_tc.cu on the flipped weight)
+        and dW (conv3_wgrad.cu) against autograd through conv3_plain on
+        that call's own grid, dy and weight, with kernel / plain / library
+        (cuDNN through torch.nn.grad) times and the bound;
      b. the full-width trainer step as scripts/train_rd.py runs it (remat
         on, alpha 2, beta 1, lr 8e-4), bf16 then f32: 20 steps on the
         batch, the median of steps 1-5, peak memory, forward / dX / dW
@@ -108,40 +108,21 @@ VOX10_GATES = {"bfloat16": (0.492671, 69.4159), "float32": (0.493043, 69.4005)}
 # vox11-class frame (phase 6b), ckpts/r4: the first readings of the streamed
 # decode (chip_smoke.py on an H100, 700 W), held with the vox10 tolerances
 VOX11_GATES = {"bfloat16": (0.494696, 74.9098), "float32": (0.495046, 74.9102)}
-# phase 7: the training batch, its plan, and conv3's backward shapes.  Per
-# step: (nb_cap, stride, decoder candidates?, ci, co) -> (dX launches, dW
-# launches).  Encoder grids hold the batch's voxels at the stride, decoder
-# stages the children of the voxels at twice the stride, at the stage's
-# candidate cap (up_cap 72, 520, 4104).  The first conv reads data: no dX.
+# phase 7: the training batch and its plan
 TRAIN_BATCH, TRAIN_RES, TRAIN_CAPACITY = 8, 128, 524288
 TRAIN_STEPS = 20
-PER_TRAIN_STEP = {
-    (4097, 1, False, 1, 16): (0, 1),
-    (513, 2, False, 32, 8): (3, 3), (513, 2, False, 8, 16): (3, 3),
-    (513, 2, False, 8, 8): (3, 3), (513, 2, False, 32, 32): (1, 1),
-    (65, 4, False, 64, 16): (3, 3), (65, 4, False, 16, 32): (3, 3),
-    (65, 4, False, 16, 16): (3, 3), (65, 4, False, 64, 64): (1, 1),
-    (9, 8, False, 32, 8): (4, 4), (9, 8, False, 8, 16): (3, 3),
-    (9, 8, False, 8, 8): (3, 3),
-    (72, 4, True, 64, 64): (1, 1), (72, 4, True, 64, 16): (3, 3),
-    (72, 4, True, 16, 32): (3, 3), (72, 4, True, 16, 16): (3, 3),
-    (72, 4, True, 64, 1): (1, 1),
-    (520, 2, True, 32, 32): (1, 1), (520, 2, True, 32, 8): (3, 3),
-    (520, 2, True, 8, 16): (3, 3), (520, 2, True, 8, 8): (3, 3),
-    (520, 2, True, 32, 1): (1, 1),
-    (4104, 1, True, 16, 16): (1, 1), (4104, 1, True, 16, 4): (3, 3),
-    (4104, 1, True, 4, 8): (3, 3), (4104, 1, True, 4, 4): (3, 3),
-    (4104, 1, True, 16, 1): (1, 1),
-}
 # conv3 launches per training step with remat: (forward, of which tensor
 # cores, dX, of which tensor cores, dW).  Remat runs each forward twice but
-# the encoder's last conv, which lies outside the checkpointed scales.
+# the encoder's last conv, which lies outside the checkpointed scales; the
+# first conv reads data, so it has no dX.
 TRAIN_LAUNCHES = (127, 127, 63, 63, 64)
-# backward kernels against f32 autograd through conv3_plain, max abs error
-# over max |ref|: f32 (dX by 3xTF32, dW by f32 FMA; summation order only),
-# bf16 (the kernels' outputs rounded to bf16: 2^-9 relative, and sums in
-# another order)
-TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# backward kernels against f32 autograd through conv3_plain on the same
+# (rounded) inputs, max abs error over max |ref|.  dW accumulates in f32
+# and returns f32 in both dtypes: only the order of summation differs.  dX
+# in f32 is 3xTF32 (f32 accuracy); in bf16 its output is rounded to bf16
+# (2^-9 relative) after sums in another order.
+TRAIN_TOL = {"dw": {"float32": 1e-4, "bfloat16": 1e-4},
+             "dx": {"float32": 1e-4, "bfloat16": 2e-2}}
 KERNEL_REPS = 10     # timed launches per kernel shape (median)
 VOX10_REPS = 3       # timed vox10 encode+decode reps per dtype (best)
 
@@ -811,56 +792,36 @@ def train_batch():
             for s in range(TRAIN_BATCH)]
 
 
-def train_grid(clouds, stride: int, nb_cap: int, children: bool, ch: int,
-               seed: int, device):
-    """A grid of the training batch at `stride` and cap `nb_cap`, with
-    N(0,1) features: the encoder's voxel set (the clouds at that stride),
-    or with `children` a decoder stage's candidates (the 8 children of
-    every voxel at twice the stride)."""
-    import numpy as np
+def wgrad_bound(bg, nbrs, ci: int, co: int, dtype: str):
+    """(bytes ms, operations ms) of conv3_wgrad's bound.  Bytes: the mask
+    of the live rows (where the occupied slots are found), dy at the
+    occupied slots only, x at the slots within the 3^3 neighbourhood of an
+    occupied one, the neighbour rows, and the f32 [27, ci, co] result: no
+    dense output, unlike the forward and dX.  Operations: 2*ci*co per pair
+    of an occupied output voxel and an occupied input voxel of its 3^3
+    neighbourhood, as `conv3_bound` counts them."""
     import torch
+    import torch.nn.functional as F
 
     from pcgcv2_torch.ops import blocks as B
+    from pcgcv2_torch.ops.conv3 import halo
 
-    rows = []
-    for b, c in enumerate(clouds):
-        if children:
-            p = np.unique(c // (2 * stride), axis=0)
-            d = np.stack(np.meshgrid(*[[0, 1]] * 3, indexing="ij"),
-                         -1).reshape(8, 3)
-            v = np.unique((p[:, None] * 2 + d[None]).reshape(-1, 3), axis=0)
-        else:
-            v = np.unique(c // stride, axis=0)
-        rows.append(np.concatenate(
-            [np.full((len(v), 1), b), v * stride], axis=1))
-    coords = torch.from_numpy(np.concatenate(rows).astype(np.int32))
-    g = torch.Generator().manual_seed(seed)
-    feats = torch.randn(len(coords), ch, generator=g)
-    bg = B.blockify(coords.to(device), feats.to(device),
-                    torch.ones(len(coords), dtype=torch.bool, device=device),
-                    nb_cap, stride=stride, res=TRAIN_RES // stride,
-                    num_batches=len(clouds))
-    assert int(bg.dropped) == 0, f"training grid overflowed at cap {nb_cap}"
-    return bg
+    elt = 4 if dtype == "float32" else 2
+    rows = int(bg.count)
+    live = (bg.mask & bg.valid[:, None]).float()
+    hm = halo(live[:, :, None], nbrs[:rows]).permute(0, 4, 1, 2, 3)
+    cnt = F.conv3d(hm, torch.ones(1, 1, 3, 3, 3, device=live.device))
+    cnt = cnt.reshape(rows, B.VOL)
+    occupied = float(live.sum())
+    reached = float((cnt > 0).sum())
+    pairs = float((cnt * live[:rows]).sum())
+    nbytes = (rows * B.VOL + occupied * co * elt + reached * ci * elt
+              + rows * 27 * 4 + 27 * ci * co * 4)
+    ops = 2.0 * ci * co * pairs
+    return nbytes / HBM_BPS * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
 
 
-def plain_grads(bg, nbrs, w, b, G):
-    """Autograd through conv3_plain in f32: (dX at every slot, dW, db) of
-    sum(conv3(x) * G)."""
-    import torch
-
-    from pcgcv2_torch.ops import conv3 as K
-
-    x = bg.feats.detach().float().requires_grad_(True)
-    wf = w.detach().float().requires_grad_(True)
-    bf = b.detach().float().requires_grad_(True)
-    out = K.conv3_plain(bg.replace(feats=x), nbrs, wf, bf, torch.float32)
-    dx, dw, db = torch.autograd.grad((out.feats * G.float()).sum(),
-                                     (x, wf, bf))
-    return dx, dw, db
-
-
-def lib_grads(bg, nbrs, w, G, cd):
+def lib_grads(bg, nbrs, w, dy, cd):
     """The library's conv3 input and weight gradients (cuDNN through
     torch.nn.grad) on the assembled halo of the live rows: two callables,
     dense part only."""
@@ -870,7 +831,7 @@ def lib_grads(bg, nbrs, w, G, cd):
 
     n = int(bg.count)
     h = K.halo(bg.feats.to(cd), nbrs[:n]).permute(0, 4, 1, 2, 3).contiguous()
-    go = G[:n].to(cd).reshape(n, 16, 16, 16, -1).permute(
+    go = dy[:n].to(cd).reshape(n, 16, 16, 16, -1).permute(
         0, 4, 1, 2, 3).contiguous()
     wl = w.to(cd).permute(4, 3, 0, 1, 2).contiguous()
     gi = torch.nn.grad.conv3d_input
@@ -878,124 +839,200 @@ def lib_grads(bg, nbrs, w, G, cd):
     return (lambda: gi(h.shape, wl, go), lambda: gw(h, wl.shape, go))
 
 
-def phase_train_kernels(device, clouds):
-    """7a: conv3_dgrad (conv3_tc.cu on the flipped weight) and conv3_wgrad
-    (conv3_wgrad.cu) against autograd through conv3_plain at every conv3
-    shape of a full-width training step, f32 and bf16."""
+def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad):
+    """One conv3 backward of a training step, on its own inputs: the input
+    grid `bg`, dy masked to the live slots, and the kernels' dW and (but
+    for the first conv) (weight, packed flip, dX).  Holds them against f32
+    autograd through conv3_plain on the same rounded inputs, and times the
+    kernels, the plain versions and cuDNN there."""
     import torch
 
     from pcgcv2_torch.ops import blocks as B
     from pcgcv2_torch.ops import conv3 as K
 
-    log("== phase 7a: conv3 backward kernels vs autograd through "
-        "conv3_plain ==")
-    gen = torch.Generator(device=device).manual_seed(7)
-    rows = []
-    grids = {}
-    for (nb_cap, stride, children, ci, co), (n_dx, n_dw) in \
-            PER_TRAIN_STEP.items():
-        key = (nb_cap, stride, children)
-        if key not in grids:
-            grids.clear()
-            torch.cuda.empty_cache()
-            grids[key] = train_grid(clouds, stride, nb_cap, children, 64,
-                                    seed=nb_cap, device=device)
-        base = grids[key]
-        nbrs = B.neighbor_rows(base)
-        live = (base.mask & base.valid[:, None])
-        occ = float(live.sum()) / (int(base.count) * B.VOL)
-        w = torch.randn(3, 3, 3, ci, co, device=device, generator=gen)
-        w *= math.sqrt(2.0 / (27 * ci))
-        b = 0.1 * torch.randn(co, device=device, generator=gen)
-        G = torch.randn(nb_cap, B.VOL, co, device=device, generator=gen)
-        row = {"nb_cap": nb_cap, "stride": stride, "candidates": children,
-               "live_rows": int(base.count), "occupancy": occ, "ci": ci,
-               "co": co, "dx_per_step": n_dx, "dw_per_step": n_dw}
-        for dtype in ("float32", "bfloat16"):
-            cd = B._DTYPES[dtype]
-            bg = base.replace(feats=base.feats[:, :, :ci].to(cd))
-            wc, bc, Gc = w.to(cd), b.to(cd), G.to(cd)
-            # reference: f32 autograd on the same (rounded) inputs
-            rdx, rdw, _ = plain_grads(bg, nbrs, wc, bc, Gc)
-            gm = torch.where(live[:, :, None], Gc, 0)
-            gbg = bg.replace(feats=gm)
-            wf = K.flip_weight(wc)
-            pf = K.pack_weight(wf)
-            dx = K.conv3_dgrad(gbg, nbrs, wc, cd, pf).feats
-            dw = K.conv3_wgrad(bg, gm, nbrs, cd)
-            torch.cuda.synchronize()
-            lv = live[:, :, None].expand_as(rdx)
-            dx_err = float((dx.float() - rdx)[lv].abs().max())
-            dx_scale = float(rdx[lv].abs().max())
-            dw_err = float((dw.to(cd).float() - rdw).abs().max())
-            dw_scale = float(rdw.abs().max())
-            zero_ok = float(dx.float()[~lv].abs().max()) == 0.0
-            rel = TRAIN_TOL[dtype]
-            ok = (dx_err <= rel * dx_scale and dw_err <= rel * dw_scale
-                  and zero_ok)
-            lib_dx, lib_dw = lib_grads(bg, nbrs, wc, Gc, cd)
-            t = {
-                "dx_ms": cuda_ms(lambda: K.conv3_dgrad(gbg, nbrs, wc, cd, pf),
-                                 KERNEL_REPS),
-                "dw_ms": cuda_ms(lambda: K.conv3_wgrad(bg, gm, nbrs, cd),
-                                 KERNEL_REPS),
-                "dx_plain_ms": cuda_ms(lambda: K.conv3_plain(
-                    gbg, nbrs, wf, None, cd), 3),
-                "dw_plain_ms": cuda_ms(lambda: K.conv3_wgrad_plain(
-                    bg, gm, nbrs, cd), 3),
-                "dx_library_ms": cuda_ms(lib_dx, KERNEL_REPS),
-                "dw_library_ms": cuda_ms(lib_dw, KERNEL_REPS),
-            }
-            # dX moves and computes what the forward conv (co -> ci) does;
-            # dW reads x and dy and does the same products
-            dx_b, dx_o = conv3_bound(gbg, nbrs, co, ci, dtype)
-            dw_b, dw_o = conv3_bound(bg, nbrs, ci, co, dtype)
-            row[dtype] = {
-                "dx_max_abs_err": dx_err, "dx_max_abs_ref": dx_scale,
-                "dw_max_abs_err": dw_err, "dw_max_abs_ref": dw_scale,
-                "dx_route": K.route(co, ci, cd), "ok": ok, **t,
-                "dx_bytes_ms": dx_b, "dx_ops_ms": dx_o,
-                "dx_bound_ms": max(dx_b, dx_o),
-                "dw_bytes_ms": dw_b, "dw_ops_ms": dw_o,
-                "dw_bound_ms": max(dw_b, dw_o),
-            }
-            log(f"conv3 bwd nb={nb_cap:<5d} s={stride} ci={ci:<3d} co={co:<3d}"
-                f" {dtype:<8s} live {int(base.count)} occ {occ:.3f} "
-                f"x{n_dx}/{n_dw} per step  dX err {dx_err:.3g} (|ref| "
-                f"{dx_scale:.3g}) {t['dx_ms']:.4f} ms  plain "
-                f"{t['dx_plain_ms']:.4f}  cuDNN {t['dx_library_ms']:.4f}  "
-                f"bound {max(dx_b, dx_o):.4f} | dW err {dw_err:.3g} (|ref| "
-                f"{dw_scale:.3g}) {t['dw_ms']:.4f} ms  plain "
-                f"{t['dw_plain_ms']:.4f}  cuDNN {t['dw_library_ms']:.4f}  "
-                f"bound {max(dw_b, dw_o):.4f}  {'OK' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(
-                    f"conv3 backward kernels disagree at nb={nb_cap} "
-                    f"ci={ci} co={co} {dtype}: dX {dx_err} of {dx_scale}, "
-                    f"dW {dw_err} of {dw_scale} (tolerance {rel} of max "
-                    f"|ref|), dX zero off the live slots: {zero_ok}")
-            del lib_dx, lib_dw
-        rows.append(row)
-    grids.clear()
-    torch.cuda.empty_cache()
+    dtype = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[cd]
+    ci, co = bg.channels, dy.shape[-1]
+    weight = dx[0] if dx is not None else torch.zeros(
+        3, 3, 3, ci, co, dtype=cd, device=dy.device)  # dW does not read it
+    with torch.enable_grad():
+        x = bg.feats.detach().to(cd).float().requires_grad_(True)
+        w = weight.detach().float().requires_grad_(True)
+        out = K.conv3_plain(bg.replace(feats=x), nbrs, w, None,
+                            torch.float32)
+        rdx, rdw = torch.autograd.grad((out.feats * dy.float()).sum(),
+                                       (x, w))
+    del out
+    live = bg.mask & bg.valid[:, None]
+    r = {"nb_cap": bg.nb_cap, "stride": bg.stride,
+         "live_rows": int(bg.count),
+         "occupancy": float(live.sum()) / (int(bg.count) * B.VOL),
+         "ci": ci, "co": co, "dx": dx is not None,
+         "dw_max_abs_err": float((dw - rdw).abs().max()),
+         "dw_max_abs_ref": float(rdw.abs().max())}
+    ok = r["dw_max_abs_err"] <= TRAIN_TOL["dw"][dtype] * r["dw_max_abs_ref"]
+    lib_dx, lib_dw = lib_grads(bg, nbrs, weight, dy, cd)
+    r["dw_ms"] = cuda_ms(lambda: real_wgrad(bg, dy, nbrs, cd), KERNEL_REPS)
+    r["dw_plain_ms"] = cuda_ms(
+        lambda: K.conv3_wgrad_plain(bg, dy, nbrs, cd), 3)
+    r["dw_library_ms"] = cuda_ms(lib_dw, KERNEL_REPS)
+    r["dw_bytes_ms"], r["dw_ops_ms"] = wgrad_bound(bg, nbrs, ci, co, dtype)
+    if dx is not None:
+        _, packed_flip, got = dx
+        lv = live[:, :, None].expand_as(rdx)
+        r["dx_max_abs_err"] = float((got.float() - rdx)[lv].abs().max())
+        r["dx_max_abs_ref"] = float(rdx[lv].abs().max())
+        r["dx_zero_off_live"] = float(got.float()[~lv].abs().max()) == 0.0
+        ok = ok and r["dx_zero_off_live"] and (
+            r["dx_max_abs_err"]
+            <= TRAIN_TOL["dx"][dtype] * r["dx_max_abs_ref"])
+        gbg = bg.replace(feats=dy)
+        wf = K.flip_weight(weight)
+        r["dx_route"] = K.route(co, ci, cd)
+        r["dx_ms"] = cuda_ms(
+            lambda: real_dgrad(gbg, nbrs, weight, cd, packed_flip),
+            KERNEL_REPS)
+        r["dx_plain_ms"] = cuda_ms(
+            lambda: K.conv3_plain(gbg, nbrs, wf, None, cd), 3)
+        r["dx_library_ms"] = cuda_ms(lib_dx, KERNEL_REPS)
+        # dX moves and computes what the forward conv (co -> ci) does
+        r["dx_bytes_ms"], r["dx_ops_ms"] = conv3_bound(gbg, nbrs, co, ci,
+                                                       dtype)
+    r["ok"] = ok
+    return r
+
+
+@contextlib.contextmanager
+def spy_backward(rows: list):
+    """While open, every conv3 backward (`Conv3Fn` calls conv3_dgrad, then
+    conv3_wgrad) goes through the kernels as usual and is then checked
+    and timed on its own inputs by `check_backward`, one row each."""
+    import functools
+
+    from pcgcv2_torch.ops import conv3 as K
+
+    real_dgrad, real_wgrad = K.conv3_dgrad, K.conv3_wgrad
+    pending = []
+
+    @functools.wraps(real_dgrad)  # copies the launch counters too
+    def dgrad(bg, nbrs, weight, compute_dtype=None, packed_flip=None):
+        out = real_dgrad(bg, nbrs, weight, compute_dtype, packed_flip)
+        pending.append((weight, packed_flip, out.feats))
+        return out
+
+    @functools.wraps(real_wgrad)
+    def wgrad(bg, dy, nbrs, compute_dtype=None):
+        dw = real_wgrad(bg, dy, nbrs, compute_dtype)
+        assert len(pending) <= 1, "a dX without its dW"
+        rows.append(check_backward(
+            bg, dy, nbrs, compute_dtype, dw,
+            pending.pop() if pending else None, real_dgrad, real_wgrad))
+        return dw
+
+    K.conv3_dgrad, K.conv3_wgrad = dgrad, wgrad
+    try:
+        yield
+    finally:
+        K.conv3_dgrad, K.conv3_wgrad = real_dgrad, real_wgrad
+
+
+def make_trainer(dtype: str, workdir: str, device):
+    """The trainer of scripts/train_rd.py at full width: `ModelConfig()`
+    (remat on), alpha 2, beta 1, lr 8e-4, for_training(524288, 128, 8),
+    in `dtype` compute."""
+    from pcgcv2_torch.config import BlockPlan, ModelConfig, TrainConfig
+    from pcgcv2_torch.ops import blocks as B
+    from pcgcv2_torch.train.trainer import Trainer
+
+    B.set_compute_dtype(dtype)
+    plan = BlockPlan.for_training(TRAIN_CAPACITY, TRAIN_RES, TRAIN_BATCH)
+    cfg = TrainConfig(alpha=2.0, beta=1.0, lr=8e-4, batch_size=TRAIN_BATCH)
+    return Trainer(cfg, plan, TRAIN_CAPACITY, ModelConfig(),
+                   logdir=os.path.join(workdir, f"tl_{dtype}"),
+                   ckptdir=os.path.join(workdir, f"tc_{dtype}"),
+                   seed=0, device=device)
+
+
+def phase_train_kernels(device, workdir: str, clouds):
+    """7a: one full-width training step per dtype (f32, bf16) with every
+    conv3 backward spied on: conv3_dgrad (conv3_tc.cu on the flipped
+    weight) and conv3_wgrad (conv3_wgrad.cu) held against autograd through
+    conv3_plain and timed on the step's own inputs."""
+    import torch
+
+    log("== phase 7a: conv3 backward kernels of one training step vs "
+        "autograd through conv3_plain, on the step's own inputs ==")
+    result = {}
     for dtype in ("float32", "bfloat16"):
-        tot = {k: per_step_sum(rows, dtype, k) for k in (
-            "dx_ms", "dx_plain_ms", "dx_library_ms", "dx_bound_ms", "dw_ms",
-            "dw_plain_ms", "dw_library_ms", "dw_bound_ms")}
-        log(f"conv3 backward per training step, {dtype}: dX "
-            f"{tot['dx_ms']:.3f} ms (plain {tot['dx_plain_ms']:.3f}, cuDNN "
-            f"{tot['dx_library_ms']:.3f}, bound {tot['dx_bound_ms']:.4f}); "
-            f"dW {tot['dw_ms']:.3f} ms (plain {tot['dw_plain_ms']:.3f}, "
-            f"cuDNN {tot['dw_library_ms']:.3f}, bound "
-            f"{tot['dw_bound_ms']:.4f})")
-    return rows
+        tr = make_trainer(dtype, f"{workdir}/7a", device)
+        coords, valid = tr._collate(clouds)
+        rows = []
+        with spy_backward(rows):
+            tr.step(coords, valid)
+        torch.cuda.synchronize()
+        del tr
+        torch.cuda.empty_cache()
+        n_dx = sum(r["dx"] for r in rows)
+        log_backward(rows, dtype)
+        bad = [r for r in rows if not r["ok"]]
+        if bad:
+            raise AssertionError(
+                f"conv3 backward kernels disagree in {len(bad)} of "
+                f"{len(rows)} calls ({dtype}); first: {bad[0]} (tolerance "
+                f"dX {TRAIN_TOL['dx'][dtype]}, dW {TRAIN_TOL['dw'][dtype]} "
+                f"of max |ref|)")
+        assert (n_dx, len(rows)) == TRAIN_LAUNCHES[2::2], \
+            f"{n_dx} dX and {len(rows)} dW calls in a step ({dtype})"
+        result[dtype] = rows
+    return result
 
 
-def per_step_sum(rows, dtype: str, key: str) -> float:
-    """A phase-7a column summed over the training step's shapes, each
-    weighted by its dX or dW launches per step."""
-    n = "dx_per_step" if key.startswith("dx") else "dw_per_step"
-    return sum(r[n] * r[dtype][key] for r in rows)
+def log_backward(rows, dtype: str) -> None:
+    """Phase 7a's rows by shape (calls summed), then the step's totals."""
+    groups = {}
+    for r in rows:
+        groups.setdefault((r["nb_cap"], r["stride"], r["ci"], r["co"]),
+                          []).append(r)
+    for (nb_cap, stride, ci, co), rs in groups.items():
+        dxs = [r for r in rs if r["dx"]]
+
+        def tot(key, sel=rs):
+            return sum(r[key] for r in sel)
+
+        def worst(k, sel=rs):
+            return max((r[f"{k}_max_abs_err"] / r[f"{k}_max_abs_ref"]
+                        for r in sel), default=float("nan"))
+
+        dx = (f"dX x{len(dxs)} {tot('dx_ms', dxs):.4f} ms plain "
+              f"{tot('dx_plain_ms', dxs):.4f} cuDNN "
+              f"{tot('dx_library_ms', dxs):.4f} bound "
+              f"{tot('dx_bytes_ms', dxs):.4f}/{tot('dx_ops_ms', dxs):.4f} "
+              f"err/|ref| {worst('dx', dxs):.3g}") if dxs else "no dX"
+        log(f"conv3 bwd {dtype:<8s} nb={nb_cap:<5d} s={stride} ci={ci:<3d} "
+            f"co={co:<3d} live {rs[0]['live_rows']} occ "
+            f"{rs[0]['occupancy']:.3f} | {dx} | dW x{len(rs)} "
+            f"{tot('dw_ms'):.4f} ms plain {tot('dw_plain_ms'):.4f} cuDNN "
+            f"{tot('dw_library_ms'):.4f} bound {tot('dw_bytes_ms'):.4f}/"
+            f"{tot('dw_ops_ms'):.4f} err/|ref| {worst('dw'):.3g} "
+            f"{'OK' if all(r['ok'] for r in rs) else 'FAIL'}")
+    t = {k: per_step_sum(rows, k) for k in (
+        "dx_ms", "dx_plain_ms", "dx_library_ms", "dx_bound_ms", "dw_ms",
+        "dw_plain_ms", "dw_library_ms", "dw_bound_ms")}
+    log(f"conv3 backward per training step, {dtype}: dX {t['dx_ms']:.3f} ms "
+        f"(plain {t['dx_plain_ms']:.3f}, cuDNN {t['dx_library_ms']:.3f}, "
+        f"bound {t['dx_bound_ms']:.4f}); dW {t['dw_ms']:.3f} ms (plain "
+        f"{t['dw_plain_ms']:.3f}, cuDNN {t['dw_library_ms']:.3f}, bound "
+        f"{t['dw_bound_ms']:.4f})")
+
+
+def per_step_sum(rows, key: str) -> float:
+    """A phase-7a column summed over the step's backward calls (dX columns
+    over the calls with a dX); `*_bound_ms` is each call's bound, the
+    larger of its bytes and operations times."""
+    p = key[:2]
+    sel = [r for r in rows if p == "dw" or r["dx"]]
+    if key.endswith("_bound_ms"):
+        return sum(max(r[f"{p}_bytes_ms"], r[f"{p}_ops_ms"]) for r in sel)
+    return sum(r[key] for r in sel)
 
 
 def backward_counts():
@@ -1021,9 +1058,7 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
     per step, loss terms, peak memory."""
     import torch
 
-    from pcgcv2_torch.config import BlockPlan, ModelConfig, TrainConfig
-    from pcgcv2_torch.ops import blocks as B
-    from pcgcv2_torch.train.trainer import Trainer
+    from pcgcv2_torch.config import BlockPlan
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1035,13 +1070,7 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
         f"{[plan.up_cap(s) for s in range(3)]}; "
         f"{sum(len(c) for c in clouds)} voxels")
     for dtype in ("bfloat16", "float32"):
-        B.set_compute_dtype(dtype)
-        cfg = TrainConfig(alpha=2.0, beta=1.0, lr=8e-4,
-                          batch_size=TRAIN_BATCH)
-        tr = Trainer(cfg, plan, TRAIN_CAPACITY, ModelConfig(),
-                     logdir=os.path.join(workdir, f"tl_{dtype}"),
-                     ckptdir=os.path.join(workdir, f"tc_{dtype}"),
-                     seed=0, device=device)
+        tr = make_trainer(dtype, workdir, device)
         coords, valid = tr._collate(clouds)
         steps = []
         torch.cuda.synchronize()
@@ -1089,8 +1118,9 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
             "losses": [s["loss"] for s in steps],
             "bce": [s["bce"] for s in steps],
             "bpp": [s["bpp"] for s in steps],
+            # the counts read after the last step (every step gated)
             "launches": dict(zip(("fwd", "fwd_tc", "dx", "dx_tc", "dw"),
-                                 TRAIN_LAUNCHES)),
+                                 steps[-1]["launches"])),
             "dropped": 0,
         }
         del tr
@@ -1191,33 +1221,29 @@ def phase_train_cli(device, workdir: str):
 
 def phase_train(device, workdir: str, card: str):
     clouds = train_batch()
-    return {"kernels": phase_train_kernels(device, clouds),
+    return {"kernels": phase_train_kernels(device, workdir, clouds),
             "steps": phase_train_steps(device, workdir, card, clouds),
             "cli": phase_train_cli(device, workdir)}
 
 
 def train_kernel_entries(train) -> list:
     """The kernels line's entries of conv3's backward: times summed over
-    one training step's launches (phase 7a), launches of the step's run
-    (phase 7b), f32 with bf16 beside it."""
-    rows = train["kernels"]
-
+    the backward calls of one training step (phase 7a), launches counted
+    in the step runs (phase 7b), f32 with bf16 beside it."""
     def entry(prefix, dtype):
-        n = "dx" if prefix == "dx" else "dw"
-        by_bytes = (per_step_sum(rows, dtype, f"{prefix}_bytes_ms")
-                    >= per_step_sum(rows, dtype, f"{prefix}_ops_ms"))
+        rows = [r for r in train["kernels"][dtype]
+                if prefix == "dw" or r["dx"]]
+        by_bytes = (per_step_sum(rows, f"{prefix}_bytes_ms")
+                    >= per_step_sum(rows, f"{prefix}_ops_ms"))
         return {
-            "launches": train["steps"][dtype]["launches"][n],
-            "max_abs_err": max(r[dtype][f"{prefix}_max_abs_err"]
-                               for r in rows),
-            "max_rel_err": max(r[dtype][f"{prefix}_max_abs_err"]
-                               / r[dtype][f"{prefix}_max_abs_ref"]
-                               for r in rows),
-            "ms": per_step_sum(rows, dtype, f"{prefix}_ms"),
-            "plain_ms": per_step_sum(rows, dtype, f"{prefix}_plain_ms"),
-            "bound_ms": per_step_sum(rows, dtype, f"{prefix}_bound_ms"),
+            "launches": train["steps"][dtype]["launches"][prefix],
+            "max_abs_err": max(r[f"{prefix}_max_abs_err"] for r in rows),
+            "max_rel_err": max(r[f"{prefix}_max_abs_err"]
+                               / r[f"{prefix}_max_abs_ref"] for r in rows),
+            **{k: per_step_sum(rows, f"{prefix}_{k}") for k in (
+                "ms", "plain_ms", "bound_ms")},
             "bound_by": "bytes" if by_bytes else "operations",
-            "library_ms": per_step_sum(rows, dtype, f"{prefix}_library_ms"),
+            "library_ms": per_step_sum(rows, f"{prefix}_library_ms"),
         }
 
     out = []

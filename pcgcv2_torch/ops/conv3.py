@@ -562,6 +562,10 @@ def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
 conv3_wgrad.launches = 0
 
 
+# the BlockGrid fields, feats aside, that Conv3Fn saves for its backward
+_GRID_TENSORS = ("coords", "mask", "table", "count", "dropped")
+
+
 class Conv3Fn(torch.autograd.Function):
     """conv3 with its backward: the forward of `_conv3`, then dX by
     `conv3_dgrad`, dW by `conv3_wgrad` and dbias by a masked sum, all from
@@ -575,20 +579,18 @@ class Conv3Fn(torch.autograd.Function):
     def forward(ctx, feats, weight, bias, bg, nbrs, cd, packed, packed_flip):
         out = _conv3(bg.replace(feats=feats), nbrs, weight, bias, cd,
                      packed).feats
-        # the structure goes through save_for_backward too, so that a
-        # checkpointed region (remat) frees and recomputes it
-        ctx.save_for_backward(feats, weight, bias, nbrs, bg.coords, bg.mask,
-                              bg.table, bg.count)
+        # the grid's tensors go through save_for_backward too, so that a
+        # checkpointed region (remat) frees and recomputes them
+        ctx.save_for_backward(feats, weight, bias, nbrs,
+                              *(getattr(bg, f) for f in _GRID_TENSORS))
         ctx.meta = (cd, packed_flip, bg.stride, bg.res, bg.num_batches)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        feats, weight, bias, nbrs, coords, mask, table, count = \
-            ctx.saved_tensors
+        feats, weight, bias, nbrs, *tensors = ctx.saved_tensors
         cd, packed_flip, stride, res, num_batches = ctx.meta
-        grid = B.BlockGrid(coords=coords, feats=feats, mask=mask, table=table,
-                           count=count, dropped=count,  # not read
+        grid = B.BlockGrid(feats=feats, **dict(zip(_GRID_TENSORS, tensors)),
                            stride=stride, res=res, num_batches=num_batches)
         gm = torch.where(_live(grid)[:, :, None], g, 0).to(cd)
         dx = dw = db = None
