@@ -39,7 +39,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      a. one full-width training step per dtype (f32, bf16) with every
         conv3 backward spied on: dX (conv3_tc.cu on the flipped weight)
         and dW (conv3_wgrad.cu) against autograd through conv3_plain on
-        that call's own grid, dy and weight, with kernel / plain / library
+        that call's own grid, dy and weight, a second dW launch on the
+        same inputs giving the same bits, with kernel / plain / library
         (cuDNN through torch.nn.grad) times and the bound;
      b. the full-width trainer step as scripts/train_rd.py runs it (remat
         on, alpha 2, beta 1, lr 8e-4), bf16 then f32: 20 steps on the
@@ -843,7 +844,8 @@ def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad):
     """One conv3 backward of a training step, on its own inputs: the input
     grid `bg`, dy masked to the live slots, and the kernels' dW and (but
     for the first conv) (weight, packed flip, dX).  Holds them against f32
-    autograd through conv3_plain on the same rounded inputs, and times the
+    autograd through conv3_plain on the same rounded inputs, checks that a
+    second dW launch on the same inputs gives the same bits, and times the
     kernels, the plain versions and cuDNN there."""
     import torch
 
@@ -869,7 +871,9 @@ def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad):
          "ci": ci, "co": co, "dx": dx is not None,
          "dw_max_abs_err": float((dw - rdw).abs().max()),
          "dw_max_abs_ref": float(rdw.abs().max())}
-    ok = r["dw_max_abs_err"] <= TRAIN_TOL["dw"][dtype] * r["dw_max_abs_ref"]
+    r["dw_same_bits"] = torch.equal(dw, real_wgrad(bg, dy, nbrs, cd))
+    ok = r["dw_same_bits"] and (
+        r["dw_max_abs_err"] <= TRAIN_TOL["dw"][dtype] * r["dw_max_abs_ref"])
     lib_dx, lib_dw = lib_grads(bg, nbrs, weight, dy, cd)
     r["dw_ms"] = cuda_ms(lambda: real_wgrad(bg, dy, nbrs, cd), KERNEL_REPS)
     r["dw_plain_ms"] = cuda_ms(
@@ -1012,7 +1016,8 @@ def log_backward(rows, dtype: str) -> None:
             f"{rs[0]['occupancy']:.3f} | {dx} | dW x{len(rs)} "
             f"{tot('dw_ms'):.4f} ms plain {tot('dw_plain_ms'):.4f} cuDNN "
             f"{tot('dw_library_ms'):.4f} bound {tot('dw_bytes_ms'):.4f}/"
-            f"{tot('dw_ops_ms'):.4f} err/|ref| {worst('dw'):.3g} "
+            f"{tot('dw_ops_ms'):.4f} err/|ref| {worst('dw'):.3g} same bits "
+            f"{all(r['dw_same_bits'] for r in rs)} "
             f"{'OK' if all(r['ok'] for r in rs) else 'FAIL'}")
     t = {k: per_step_sum(rows, k) for k in (
         "dx_ms", "dx_plain_ms", "dx_library_ms", "dx_bound_ms", "dw_ms",
@@ -1252,7 +1257,9 @@ def train_kernel_entries(train) -> list:
              "tc (conv3_tc.cu on flip_weight(W), mma.sync {})",
              "torch.nn.grad.conv3d_input (cuDNN) on the live rows' halo"),
             ("conv3_wgrad", "dw", "pcgcv2_torch/csrc/conv3_wgrad.cu",
-             "conv3_wgrad.cu (CUDA cores, f32 FMA, {} inputs)",
+             "conv3_wgrad.cu (CUDA cores, f32 FMA; one pass per live row "
+             "for all 27 taps over cp.async-staged input planes, persistent "
+             "CTAs, fixed-order sums; {} inputs)",
              "torch.nn.grad.conv3d_weight (cuDNN) on the live rows' halo")):
         out.append({
             "name": name, "route": "cuda", "source": source,

@@ -12,54 +12,153 @@
 //
 // halo_i the (16+2)^3 neighbourhood of block row i gathered through
 // nbrs[i] (a miss reads the all-zero sentinel row), dy the output
-// gradient, read only at occupied slots.  (The input gradient is the
-// forward kernel, conv3_tc.cu, on the flipped, transposed weight.)
+// gradient, read only at occupied slots.  Under bf16 compute dy comes in
+// bf16 and x, read as the grid stores it, is rounded to bf16 (then f32) as
+// it is staged: the rounding conv3_wgrad_plain does.  (The input gradient
+// is the forward kernel, conv3_tc.cu, on the flipped, transposed weight.)
 //
 // What bounds it on this card: per occupied output voxel and tap it does
-// 2*ci*co FLOP against ci + co gathered values, at most 2*64*64 / (128*2)
-// = 32 FLOP per bf16 byte, so the dense work is small and a sparse grid
-// (5-30% of the slots of a live block are occupied) makes it a gather.
-// Design, simple first:
-//   * pass 1: one CTA per (block row, tap).  It lists the occupied slots of
-//     its row in shared memory (a block-wide scan of the mask, ascending),
-//     then walks them in chunks: stages dy of the chunk's voxels and the
-//     input voxel at the tap's shift (an address from nbrs, as in the
-//     forward's halo) as f32 in shared memory, and accumulates the outer
-//     products x^T dy in registers, each thread a TM x TN tile of the
-//     [ci, co] result over every KSPLIT-th voxel.  The KSPLIT partial
-//     tiles are summed in a fixed order and written to part[row, tap];
-//   * pass 2: dW[e] = sum over rows < count of part[row, e], one column
-//     per thread x, 8 row phases per column, summed in a fixed order.
-//   Both passes are deterministic: no atomics, the same bits every run.
-// Not yet: tensor cores (mma.sync / wgmma on a 64-voxel K), fusing the 27
-// taps of a row into one CTA, a persistent reduction.
+// 2*ci*co FLOP against ci + co values, so the dense work is small and a
+// sparse grid (5-30% of the slots of a live block are occupied) makes it a
+// gather: every input voxel is read by up to 27 output voxels, every dy
+// value by 27 taps.  The design reads each from device memory once per
+// row and split, and keeps the 27-fold reuse in shared memory:
+//   * G persistent CTAs per split (G a constant of the plan, not of the
+//     card, so the order of summation is the same on any card) walk the
+//     work items below *count (read on the device: no host sync) and keep
+//     their sums in registers.  An item is a live row, or a chunk of 8, 4,
+//     2 or 1 of its 16 output x-planes where the rows are too few to give
+//     every CTA one (`work_items`);
+//   * every CTA computes all 27 taps of a ci tile x co tile (a split),
+//     chosen per (ci, co, x dtype, dy dtype) by `make_plan` (the wrapper's
+//     ops/conv3.py::wgrad_plan mirrors it) so that each thread holds at
+//     most ACC_MAX accumulators and the staging fits in shared memory;
+//     27 * ci_tile * co_tile <= 16384, so every instance keeps its taps
+//     together and the wide ones split their channels (64 -> 64 into 8 ci
+//     tiles of 8);
+//   * per item, a block-wide scan of the row's 4096 mask bytes lists its
+//     occupied slots in ascending order, grouped by x-plane.  Then, one
+//     output x-plane at a time, dy at that plane's slots and the three
+//     input planes its taps read (18x18 x ci-tile tiles from the neighbour
+//     rows; misses read the zero sentinel row) are gathered with cp.async
+//     (16 bytes, or 8 or 4 for a narrower voxel; a 2-byte voxel by plain
+//     loads) into rings of plane buffers, one plane ahead of their use, as
+//     conv3_tc.cu stages the forward.  Each input plane is staged once per
+//     item and split and read by the 9 taps of each of its 3 output
+//     planes.  Staged y rows are padded by 16 bytes, which spreads the dy
+//     taps of a warp over the banks.  A plane no occupied output plane
+//     reads is not staged, an empty output plane is not computed;
+//   * every thread owns a TM x TN tile of one tap's [ci, co] block and
+//     walks every KSPLIT-th listed voxel, reading only shared memory;
+//   * at the end the KSPLIT partial tiles are summed in a fixed order into
+//     part[b, tap, ci, co], and a second kernel sums the partials of the
+//     CTAs that had an item in a fixed order.  No atomics: the same bits
+//     every run.
+// Measured on the H100 (PERF.md): a training step's 64 calls spend about
+// 11 ms (f32) and 13.5 ms (bf16) in these kernels, some 6x the f32 FMA
+// bound: the x reads of 27 taps from shared memory, with the syncs of each
+// plane, bound it.  Not yet: tensor cores (mma.sync with the live voxels
+// as K), overlap of one item's first planes with the previous item's
+// arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int BS = 16;
 constexpr int VOL = BS * BS * BS;
 constexpr int HS = BS + 2;
-constexpr int THREADS = 256;
-constexpr int RED_Y = 8;  // row phases per column in pass 2
+constexpr int PLANE = HS * HS;          // voxels per staged input plane
+constexpr int THREADS = 256;            // 16 mask bytes each in a row scan
+constexpr int ACC_MAX = 64;             // accumulators per thread
+constexpr int GRID_CTAS = 512;          // G x splits, about
+constexpr int SMEM_MAX = 232448 - 9216;  // dynamic smem, beside idx[]
+constexpr int RED_Y = 8;                // row phases per column in pass 2
+constexpr int AHEAD = 1;                // planes staged ahead of their use
+constexpr int NBUF = 3 + AHEAD;         // ring of staged input planes
+constexpr int DYBUF = 1 + AHEAD;        // ring of staged dy planes
 
-template <int CI, int CO>
-struct WCfg {
-  static constexpr int TM = CI < 4 ? CI : 4;  // thread tile along ci
-  static constexpr int TN = CO < 4 ? CO : 4;  // thread tile along co
-  static constexpr int PN = CO / TN;
-  static constexpr int P = (CI / TM) * PN;    // threads per k-split group
-  static constexpr int KSPLIT = THREADS / P;  // voxel phases
-  static constexpr int CMAX = CI > CO ? CI : CO;
-  static constexpr int CH = 4096 / CMAX > 128 ? 128 : 4096 / CMAX;
-  static constexpr int STAGE = CH * (CI + CO);  // floats staged per chunk
-  static constexpr int RED = KSPLIT * CI * CO;  // floats of the k-split sum
-  static constexpr int BUF = STAGE > RED ? STAGE : RED;
-  static_assert(P <= THREADS && THREADS % P == 0, "thread tiling");
+// The plan of one (ci, co, x and dy element sizes) instance; ops/conv3.py::
+// wgrad_plan computes the same and the launch checks that they agree.
+struct Plan {
+  int cit, cot;   // ci and co tiles of a split
+  int tm, tn;     // a thread's accumulator tile
+  int p, ksplit;  // thread tiles per CTA, voxel phases
+  int splits, g;  // splits, persistent CTAs per split
+  int smem;       // dynamic smem bytes
 };
+
+constexpr int pow2_ceil(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+constexpr int imax(int a, int b) { return a > b ? a : b; }
+constexpr int imin(int a, int b) { return a < b ? a : b; }
+
+constexpr Plan plan_for(int ci, int co, int sx, int sg, int cit, int cot) {
+  const int e = 27 * cit * cot;
+  const int f = imax(pow2_ceil((e + THREADS - 1) / THREADS),
+                     imin(16, cit * cot));
+  const int side = f >= 64 ? 8 : (f >= 16 ? 4 : (f >= 4 ? 2 : 1));
+  int tm = imin(cit, side), tn = f / tm;
+  if (tn > cot) {
+    tn = cot;
+    tm = f / cot;
+  }
+  const int p = e / f, ksplit = THREADS / p;
+  const int splits = (ci / cit) * (co / cot);
+  // staged y rows are padded by 16 bytes (bank conflicts of the dy taps)
+  const int ring = NBUF * HS * (HS * cit * sx + 16);
+  const int smem = imax(ring + DYBUF * THREADS * cot * sg,
+                        ksplit * e * 4);
+  return Plan{cit, cot, tm, tn, p, ksplit, splits,
+              imax(8, GRID_CTAS / splits), smem};
+}
+
+// The first that fits: the widest co tile, then the widest ci tile.
+constexpr Plan make_plan(int ci, int co, int sx, int sg) {
+  for (int cot = co; cot >= 1; cot /= 2)
+    for (int cit = ci; cit >= 1; cit /= 2) {
+      const Plan p = plan_for(ci, co, sx, sg, cit, cot);
+      if (p.tm * p.tn <= ACC_MAX && p.smem <= SMEM_MAX) return p;
+    }
+  return Plan{};
+}
+
+template <typename TX, typename TG, int CI, int CO>
+struct Cfg {
+  static constexpr Plan PL = make_plan(CI, CO, sizeof(TX), sizeof(TG));
+  static constexpr int CIT = PL.cit, COT = PL.cot;
+  static constexpr int TM = PL.tm, TN = PL.tn, P = PL.p, KSPLIT = PL.ksplit;
+  static constexpr int COS = CO / COT;                 // co tiles
+  static constexpr int MT = CIT / TM, NTL = COT / TN;  // thread tiles
+  static constexpr int E = 27 * CIT * COT;             // entries per CTA
+  static constexpr int RSY = HS * CIT + 16 / sizeof(TX);  // staged y row
+  static constexpr int SLOT = HS * RSY;                // staged plane
+  static constexpr int RING = NBUF * SLOT;             // staged x elements
+  static constexpr int GBUF = THREADS * COT;           // dy per buffer
+  // f32 x under bf16 compute (bf16 dy) is rounded to bf16 as it lands
+  static constexpr bool ROUND = std::is_same<TX, float>::value &&
+                                std::is_same<TG, __nv_bfloat16>::value;
+  static_assert(PL.cit != 0, "no plan fits");
+  static_assert(P * KSPLIT <= THREADS && TM * TN <= ACC_MAX, "plan");
+};
+
+// The work items of a grid of g CTAs over n_rows live rows: (row, chunk of
+// xp output x-planes), xp the widest of 16, 8, 4, 2, 1 that still gives
+// every CTA an item.  A function of count and G alone, so the order of
+// summation is too.
+__device__ __forceinline__ int work_items(int n_rows, int g, int& xp) {
+  xp = BS;
+  while (xp > 1 && n_rows * (BS / xp) < g) xp /= 2;
+  return n_rows * (BS / xp);
+}
 
 // halo coordinate h in [0, 18) -> neighbour offset (0, 1, 2) and the cell
 // it reads inside that neighbour block
@@ -68,124 +167,300 @@ __device__ __forceinline__ void halo_src(int h, int& nbr, int& cell) {
   cell = h == 0 ? BS - 1 : (h == HS - 1 ? 0 : h - 1);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of one N-byte piece (N = 16, 8 or 4)
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(src), "n"(N)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T, int CI, int CO>
+// N consecutive elements at p (aligned to their size) as f32
+template <int N, typename T>
+__device__ __forceinline__ void load_f(const T* p, float (&v)[N]) {
+  constexpr int B = N * sizeof(T);
+  alignas(16) T tmp[N];
+  if constexpr (B % 16 == 0) {
+#pragma unroll
+    for (int j = 0; j < B / 16; ++j)
+      reinterpret_cast<uint4*>(tmp)[j] = reinterpret_cast<const uint4*>(p)[j];
+  } else if constexpr (B == 8) {
+    *reinterpret_cast<uint2*>(tmp) = *reinterpret_cast<const uint2*>(p);
+  } else if constexpr (B == 4) {
+    *reinterpret_cast<uint32_t*>(tmp) = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) tmp[j] = p[j];
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = to_f(tmp[j]);
+}
+
+// gather halo plane p (halo x coordinate, 0..17) of block row `rows`,
+// channels c0 .. c0 + CIT - 1, into `slot`: 18 x 18 voxels from the
+// neighbour rows of that plane, y rows RSY elements apart
+template <typename TX, int CI, int CIT, int RSY>
+__device__ __forceinline__ void stage(const TX* __restrict__ x,
+                                      const int* rows, TX* slot, int p,
+                                      int c0, int t) {
+  int nx, sx;
+  halo_src(p, nx, sx);
+  constexpr int VB = CIT * sizeof(TX);       // bytes per staged voxel
+  constexpr int PIECE = VB < 16 ? VB : 16;   // bytes per copy
+  constexpr int CH = VB / PIECE;             // copies per voxel
+  constexpr int PE = PIECE / sizeof(TX);     // elements per copy
+  for (int k = t; k < PLANE * CH; k += THREADS) {
+    const int r = k / CH, c = k % CH;
+    int ny, sy, nz, sz;
+    halo_src(r / HS, ny, sy);
+    halo_src(r % HS, nz, sz);
+    const size_t row = rows[nx * 9 + ny * 3 + nz];
+    const TX* src =
+        x + (row * VOL + (sx * BS + sy) * BS + sz) * CI + c0 + c * PE;
+    TX* dst = slot + (r / HS) * RSY + (r % HS) * CIT + c * PE;
+    if constexpr (PIECE >= 4)
+      cp_async<PIECE>(smem_u32(dst), src);
+    else
+      *dst = *src;  // a 2-byte voxel: cp.async moves 4, 8 or 16 bytes
+  }
+}
+
+// round to bf16 (then f32) the part of a staged f32 plane that `stage`
+// made thread t copy
+template <int CIT, int RSY>
+__device__ __forceinline__ void round_bf16(float* slot, int t) {
+  constexpr int PIECE = CIT * 4 < 16 ? CIT * 4 : 16;
+  constexpr int CH = CIT * 4 / PIECE;
+  constexpr int PE = PIECE / 4;
+  for (int k = t; k < PLANE * CH; k += THREADS) {
+    const int r = k / CH, c = k % CH;
+    float* f = slot + (r / HS) * RSY + (r % HS) * CIT + c * PE;
+    if constexpr (PE == 1) {
+      f[0] = __bfloat162float(__float2bfloat16_rn(f[0]));
+    } else {  // pairs: one cvt.rn.bf16x2.f32 for two values
+#pragma unroll
+      for (int j = 0; j < PE; j += 2) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f[j], f[j + 1]);
+        f[j] = __low2float(h);
+        f[j + 1] = __high2float(h);
+      }
+    }
+  }
+}
+
+// gather dy at the listed slots idx[0 .. n) of the row at `row0` (flat
+// voxel index), co tile co0 .., into buf [n][COT]
+template <typename TG, int CO, int COT>
+__device__ __forceinline__ void stage_dy(const TG* __restrict__ dy,
+                                         const uint16_t* idx, size_t row0,
+                                         int n, int co0, TG* buf, int t) {
+  constexpr int VB = COT * sizeof(TG);
+  constexpr int PIECE = VB < 16 ? VB : 16;
+  constexpr int CH = VB / PIECE;
+  constexpr int PE = PIECE / sizeof(TG);
+  for (int k = t; k < n * CH; k += THREADS) {
+    const int j = k / CH, c = k % CH;
+    const TG* src = dy + (row0 + idx[j]) * CO + co0 + c * PE;
+    TG* dst = buf + j * COT + c * PE;
+    if constexpr (PIECE >= 4)
+      cp_async<PIECE>(smem_u32(dst), src);
+    else
+      *dst = *src;
+  }
+}
+
+template <typename TX, typename TG, int CI, int CO>
 __global__ void __launch_bounds__(THREADS)
-    wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+    wgrad_partial_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
                          const int* __restrict__ nbrs,
                          const uint8_t* __restrict__ mask,
                          const int* __restrict__ count,
                          float* __restrict__ part) {
-  using C = WCfg<CI, CO>;
-  __shared__ __align__(16) float buf[C::BUF];
-  __shared__ uint16_t idx[VOL];
+  using C = Cfg<TX, TG, CI, CO>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TX* ring = reinterpret_cast<TX*>(smem);
+  TG* gbuf = reinterpret_cast<TG*>(smem + C::RING * sizeof(TX));
+  __shared__ uint16_t idx[VOL];   // the row's occupied slots, ascending
+  __shared__ int pstart[BS + 1];  // where each x-plane's slots start
   __shared__ int rows[27];
   __shared__ int wsum[THREADS / 32];
 
-  const int i = blockIdx.x, tap = blockIdx.y;
-  if (i >= *count) return;  // the whole CTA: pass 2 reads rows < count
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int tx = tap / 9, ty = (tap / 3) % 3, tz = tap % 3;
-  if (t < 27) rows[t] = nbrs[(size_t)i * 27 + t];
+  // the split: ci tile ci0 .., co tile co0 .. (co fastest)
+  const int ci0 = blockIdx.y / C::COS * C::CIT;
+  const int co0 = blockIdx.y % C::COS * C::COT;
 
-  // the occupied slots of row i, ascending: thread t scans slots 16t ..
-  // 16t+15, a block-wide exclusive scan places them
-  const uint4 m4 = reinterpret_cast<const uint4*>(mask + (size_t)i * VOL)[t];
-  const uint32_t mw[4] = {m4.x, m4.y, m4.z, m4.w};
-  int c = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) c += ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) != 0;
-  int incl = c;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) wsum[warp] = incl;
-  __syncthreads();
-  int pos = incl - c, nlive = 0;
-#pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) {
-    pos += w < warp ? wsum[w] : 0;
-    nlive += wsum[w];
-  }
-#pragma unroll
-  for (int k = 0; k < 16; ++k)
-    if ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) idx[pos++] = 16 * t + k;
-  __syncthreads();
+  // this thread's tile: tap, ci ci0 + m0 .., co co0 + n0 ..; voxel phase s
+  const int s = t / C::P, pt = t % C::P;
+  const bool active = s < C::KSPLIT;
+  const int m0 = (pt / C::NTL) % C::MT * C::TM, n0 = pt % C::NTL * C::TN;
+  const int tap = pt / (C::NTL * C::MT);
+  const int tdx = tap / 9, tdy = (tap / 3) % 3, tdz = tap % 3;
 
-  const int s = t / C::P, p = t % C::P;
-  const int m0 = (p / C::PN) * C::TM, n0 = (p % C::PN) * C::TN;
   float acc[C::TM][C::TN];
 #pragma unroll
   for (int a = 0; a < C::TM; ++a)
 #pragma unroll
     for (int b = 0; b < C::TN; ++b) acc[a][b] = 0.f;
 
-  float* xs = buf;               // [CH][CI]: x at the tap's shift
-  float* gs = buf + C::CH * CI;  // [CH][CO]: dy
-  for (int c0 = 0; c0 < nlive; c0 += C::CH) {
-    const int n = min(C::CH, nlive - c0);
-    for (int k = t; k < n * CO; k += THREADS) {
-      const int v = idx[c0 + k / CO];
-      gs[k] = to_f(dy[((size_t)i * VOL + v) * CO + k % CO]);
+  int xp;
+  const int items = work_items(*count, gridDim.x, xp), per_row = BS / xp;
+  if (blockIdx.x >= items) return;  // its partial is never read
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int i = it / per_row, x0 = it % per_row * xp;
+    const size_t row0 = (size_t)i * VOL;
+    if (t < 27) rows[t] = nbrs[(size_t)i * 27 + t];
+    // the row's occupied slots, ascending: thread t scans slots 16t ..
+    // 16t+15 (plane t / 16), a block-wide exclusive scan places them
+    const uint4 m4 = reinterpret_cast<const uint4*>(mask + row0)[t];
+    const uint32_t mw[4] = {m4.x, m4.y, m4.z, m4.w};
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      c += ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) != 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
     }
-    for (int k = t; k < n * CI; k += THREADS) {
-      const int v = idx[c0 + k / CI];
-      int nx, sx, ny, sy, nz, sz;
-      halo_src((v >> 8) + tx, nx, sx);
-      halo_src(((v >> 4) & 15) + ty, ny, sy);
-      halo_src((v & 15) + tz, nz, sz);
-      const size_t row = rows[nx * 9 + ny * 3 + nz];
-      xs[k] = to_f(x[(row * VOL + (sx * BS + sy) * BS + sz) * CI + k % CI]);
-    }
+    if (lane == 31) wsum[warp] = incl;
     __syncthreads();
-    for (int k = s; k < n; k += C::KSPLIT) {
-      float a[C::TM], b[C::TN];
+    int pos = incl - c;
 #pragma unroll
-      for (int q = 0; q < C::TM; ++q) a[q] = xs[k * CI + m0 + q];
+    for (int w = 0; w < THREADS / 32; ++w) pos += w < warp ? wsum[w] : 0;
+    if ((t & 15) == 0) pstart[t >> 4] = pos;
+    if (t == THREADS - 1) pstart[BS] = pos + c;
 #pragma unroll
-      for (int q = 0; q < C::TN; ++q) b[q] = gs[k * CO + n0 + q];
-#pragma unroll
-      for (int q = 0; q < C::TM; ++q)
-#pragma unroll
-        for (int r = 0; r < C::TN; ++r) acc[q][r] = fmaf(a[q], b[r], acc[q][r]);
+    for (int k = 0; k < 16; ++k)
+      if ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) idx[pos++] = 16 * t + k;
+    __syncthreads();
+    uint32_t occ = 0;  // this item's occupied output planes
+    for (int p = x0; p < x0 + xp; ++p)
+      occ |= (uint32_t)(pstart[p + 1] > pstart[p]) << p;
+    if (occ == 0u) {
+      __syncthreads();  // rows, wsum, pstart, idx are rewritten
+      continue;
     }
-    __syncthreads();  // the next chunk restages xs and gs
+    // input plane q (halo x coordinate) is read by the output planes
+    // q - 2 .. q
+    auto needed = [&](int q) {
+      const int lo = max(0, q - 2), hi = min(BS - 1, q);
+      return ((occ >> lo) & ((2u << (hi - lo)) - 1u)) != 0u;
+    };
+    auto slot = [&](int q) { return ring + (q % NBUF) * C::SLOT; };
+    auto dybuf = [&](int xo) { return gbuf + (xo % DYBUF) * C::GBUF; };
+    [[maybe_unused]] int rnd = x0;  // f32 x, bf16 dy: first plane unrounded
+    auto dy_of = [&](int xo) {  // dy at output plane xo's occupied slots
+      stage_dy<TG, CO, C::COT>(dy, idx + pstart[xo], row0,
+                               pstart[xo + 1] - pstart[xo], co0, dybuf(xo),
+                               t);
+    };
+    const int qend = x0 + xp + 2;  // input planes x0 .. qend - 1
+#pragma unroll 1
+    for (int q = x0; q < x0 + 2 + AHEAD; ++q) {
+      if (q < qend && needed(q))
+        stage<TX, CI, C::CIT, C::RSY>(x, rows, slot(q), q, ci0, t);
+      if (q >= x0 + 2 && q - 2 < x0 + xp) dy_of(q - 2);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int xo = x0; xo < x0 + xp; ++xo) {
+      // AHEAD planes ahead: input plane xo + 2 + AHEAD into the slot output
+      // plane xo - 1 read, dy of output plane xo + AHEAD into the buffer it
+      // read
+      const int qn = xo + 2 + AHEAD;
+      if (qn < qend && needed(qn))
+        stage<TX, CI, C::CIT, C::RSY>(x, rows, slot(qn), qn, ci0, t);
+      if (xo + AHEAD < x0 + xp) dy_of(xo + AHEAD);
+      cp_async_commit();
+      if (!((occ >> xo) & 1u)) continue;
+      cp_async_wait<AHEAD>();  // planes xo .. xo + 2, dy of xo (own part)
+      if constexpr (C::ROUND) {  // each thread rounds the copies it made
+        for (rnd = max(rnd, xo); rnd <= xo + 2; ++rnd)
+          round_bf16<C::CIT, C::RSY>(slot(rnd), t);
+      }
+      __syncthreads();  // ... everyone's
+
+      if (active) {
+        const TX* pl = slot(xo + tdx) + tdy * C::RSY + tdz * C::CIT + m0;
+        const TG* g = dybuf(xo) + n0;
+        const uint16_t* vs = idx + pstart[xo];
+        const int n = pstart[xo + 1] - pstart[xo];
+#pragma unroll 2
+        for (int k = s; k < n; k += C::KSPLIT) {
+          const int v = vs[k] & (BS * BS - 1);  // (y, z) in the plane
+          float a[C::TM], b[C::TN];
+          load_f<C::TM>(pl + (v >> 4) * C::RSY + (v & 15) * C::CIT, a);
+          load_f<C::TN>(g + k * C::COT, b);
+#pragma unroll
+          for (int p = 0; p < C::TM; ++p)
+#pragma unroll
+            for (int r = 0; r < C::TN; ++r)
+              acc[p][r] = fmaf(a[p], b[r], acc[p][r]);
+        }
+      }
+      __syncthreads();  // the ring slot and the dy buffer are reused
+    }
+    cp_async_wait<0>();  // no copy of this item may land in the next one's
+    __syncthreads();
   }
 
-  // sum the KSPLIT partial tiles in a fixed order
-  float* red = buf;  // [KSPLIT][CI * CO]
+  // sum the KSPLIT partial tiles in a fixed order into part[b, tap, ci, co]
+  float* red = reinterpret_cast<float*>(smem);  // [KSPLIT][E]
+  if (active) {
 #pragma unroll
-  for (int a = 0; a < C::TM; ++a)
+    for (int a = 0; a < C::TM; ++a)
 #pragma unroll
-    for (int b = 0; b < C::TN; ++b)
-      red[s * CI * CO + (m0 + a) * CO + n0 + b] = acc[a][b];
+      for (int b = 0; b < C::TN; ++b)
+        red[s * C::E + (tap * C::CIT + m0 + a) * C::COT + n0 + b] = acc[a][b];
+  }
   __syncthreads();
-  float* dst = part + ((size_t)i * 27 + tap) * CI * CO;
-  for (int e = t; e < CI * CO; e += THREADS) {
+  for (int e = t; e < C::E; e += THREADS) {
     float sum = 0.f;
-    for (int q = 0; q < C::KSPLIT; ++q) sum += red[q * CI * CO + e];
-    dst[e] = sum;
+    for (int q = 0; q < C::KSPLIT; ++q) sum += red[q * C::E + e];
+    const int tp = e / (C::CIT * C::COT), m = (e / C::COT) % C::CIT;
+    part[((size_t)blockIdx.x * 27 + tp) * CI * CO + (ci0 + m) * CO +
+         co0 + e % C::COT] = sum;
   }
 }
 
-// out[e] = sum over rows r < count of part[r, e], e < n_e
+// out[e] = sum over the partials r < min(g, items) of part[r, e], e < n_e
 __global__ void __launch_bounds__(32 * RED_Y)
     wgrad_reduce_kernel(const float* __restrict__ part,
-                        const int* __restrict__ count, float* __restrict__ out,
-                        int n_e) {
+                        const int* __restrict__ count, int g,
+                        float* __restrict__ out, int n_e) {
   __shared__ float red[RED_Y][33];
   const int e = blockIdx.x * 32 + threadIdx.x;
-  const int n = *count;
+  int xp;
+  g = min(g, work_items(*count, g, xp));
   float s = 0.f;
   if (e < n_e) {
 #pragma unroll 4
-    for (int r = threadIdx.y; r < n; r += RED_Y) s += part[(size_t)r * n_e + e];
+    for (int r = threadIdx.y; r < g; r += RED_Y) s += part[(size_t)r * n_e + e];
   }
   red[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
@@ -197,51 +472,58 @@ __global__ void __launch_bounds__(32 * RED_Y)
   }
 }
 
-template <typename T, int CI, int CO>
+template <typename TX, typename TG, int CI, int CO>
 int launch(const void* x, const void* dy, const void* nbrs, const void* mask,
-           const void* count, void* part, void* out, int nb,
+           const void* count, void* part, void* out, const int* plan,
            cudaStream_t stream) {
-  wgrad_partial_kernel<T, CI, CO><<<dim3(nb, 27), THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
+  using C = Cfg<TX, TG, CI, CO>;
+  if (plan[0] != C::CIT || plan[1] != C::COT || plan[2] != C::PL.g)
+    return -2;  // the wrapper's plan is not this instance's
+  auto kern = wgrad_partial_kernel<TX, TG, CI, CO>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::PL.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(C::PL.g, C::PL.splits), THREADS, C::PL.smem, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TG*>(dy),
       static_cast<const int*>(nbrs), static_cast<const uint8_t*>(mask),
       static_cast<const int*>(count), static_cast<float*>(part));
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_e = 27 * CI * CO;
   wgrad_reduce_kernel<<<(n_e + 31) / 32, dim3(32, RED_Y), 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(count),
-      static_cast<float*>(out), n_e);
+      C::PL.g, static_cast<float*>(out), n_e);
   return static_cast<int>(cudaGetLastError());
 }
 
-#define PCGC_ARGS x, dy, nbrs, mask, count, part, out, nb, s
+#define PCGC_ARGS x, dy, nbrs, mask, count, part, out, plan, s
 
-template <typename T, int CI>
-int by_co(const void* x, const void* dy, const void* nbrs, const void* mask,
-          const void* count, void* part, void* out, int nb, cudaStream_t s,
-          int co) {
+template <typename TX, typename TG, int CI>
+int by_co(const void* x, const void* dy, const void* nbrs,
+          const void* mask, const void* count, void* part, void* out,
+          const int* plan, cudaStream_t s, int co) {
   switch (co) {
-    case 1: return launch<T, CI, 1>(PCGC_ARGS);
-    case 4: return launch<T, CI, 4>(PCGC_ARGS);
-    case 8: return launch<T, CI, 8>(PCGC_ARGS);
-    case 16: return launch<T, CI, 16>(PCGC_ARGS);
-    case 32: return launch<T, CI, 32>(PCGC_ARGS);
-    case 64: return launch<T, CI, 64>(PCGC_ARGS);
+    case 1: return launch<TX, TG, CI, 1>(PCGC_ARGS);
+    case 4: return launch<TX, TG, CI, 4>(PCGC_ARGS);
+    case 8: return launch<TX, TG, CI, 8>(PCGC_ARGS);
+    case 16: return launch<TX, TG, CI, 16>(PCGC_ARGS);
+    case 32: return launch<TX, TG, CI, 32>(PCGC_ARGS);
+    case 64: return launch<TX, TG, CI, 64>(PCGC_ARGS);
     default: return -1;
   }
 }
 
-template <typename T>
-int by_ci(const void* x, const void* dy, const void* nbrs, const void* mask,
-          const void* count, void* part, void* out, int nb, cudaStream_t s,
-          int ci, int co) {
+template <typename TX, typename TG>
+int by_ci(const void* x, const void* dy, const void* nbrs,
+          const void* mask, const void* count, void* part, void* out,
+          const int* plan, cudaStream_t s, int ci, int co) {
   switch (ci) {
-    case 1: return by_co<T, 1>(PCGC_ARGS, co);
-    case 4: return by_co<T, 4>(PCGC_ARGS, co);
-    case 8: return by_co<T, 8>(PCGC_ARGS, co);
-    case 16: return by_co<T, 16>(PCGC_ARGS, co);
-    case 32: return by_co<T, 32>(PCGC_ARGS, co);
-    case 64: return by_co<T, 64>(PCGC_ARGS, co);
+    case 1: return by_co<TX, TG, 1>(PCGC_ARGS, co);
+    case 4: return by_co<TX, TG, 4>(PCGC_ARGS, co);
+    case 8: return by_co<TX, TG, 8>(PCGC_ARGS, co);
+    case 16: return by_co<TX, TG, 16>(PCGC_ARGS, co);
+    case 32: return by_co<TX, TG, 32>(PCGC_ARGS, co);
+    case 64: return by_co<TX, TG, 64>(PCGC_ARGS, co);
     default: return -1;
   }
 }
@@ -250,19 +532,30 @@ int by_ci(const void* x, const void* dy, const void* nbrs, const void* mask,
 
 }  // namespace
 
-// x [nb, 4096, ci] and dy [nb, 4096, co] in f32 (bf16 = 0) or bf16
-// (bf16 = 1); nbrs int32 [nb, 27]; mask bool [nb, 4096] (16-byte
-// aligned); count int32 [1] on the device; part f32 [nb, 27, ci, co]
-// scratch; out f32 [27, ci, co].  Returns 0, a cudaError_t of a launch,
-// or -1 for an instance it does not have.
+// x [nb, 4096, ci] in f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), as the grid
+// stores it; dy [nb, 4096, co] in the compute dtype, f32 (dy_bf16 = 0) or
+// bf16 (dy_bf16 = 1); nbrs int32 [nb, 27]; mask bool [nb, 4096] (16-byte
+// aligned); count int32 [1] on the device; plan int32[3] on the host: (ci
+// tile, co tile, G) of ops/conv3.py::wgrad_plan; part f32
+// [G, 27, ci, co] scratch; out f32 [27, ci, co].  Returns 0, a cudaError_t
+// of a launch, -1 for an instance it does not have, or -2 where `plan` is
+// not the instance's.
 extern "C" int pcgc_conv3_wgrad(const void* x, const void* dy,
                                 const void* nbrs, const void* mask,
                                 const void* count, void* part, void* out,
-                                int nb, int ci, int co, int bf16,
-                                void* stream) {
+                                const int* plan, int ci, int co, int x_bf16,
+                                int dy_bf16, void* stream) {
+  using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return by_ci<__nv_bfloat16>(x, dy, nbrs, mask, count, part, out, nb, s,
-                                ci, co);
-  return by_ci<float>(x, dy, nbrs, mask, count, part, out, nb, s, ci, co);
+  if (x_bf16 && dy_bf16)
+    return by_ci<bf16, bf16>(x, dy, nbrs, mask, count, part, out, plan, s,
+                             ci, co);
+  if (x_bf16)
+    return by_ci<bf16, float>(x, dy, nbrs, mask, count, part, out, plan, s,
+                              ci, co);
+  if (dy_bf16)
+    return by_ci<float, bf16>(x, dy, nbrs, mask, count, part, out, plan, s,
+                              ci, co);
+  return by_ci<float, float>(x, dy, nbrs, mask, count, part, out, plan, s, ci,
+                             co);
 }

@@ -43,20 +43,24 @@ live slots (occupied slots of rows < count, where the forward wrote):
   it writes only live slots: every producer of a conv3 input in the model
   masks its output (`BlockGrid.with_feats`), so the gradient at the other
   slots would be discarded upstream anyway;
-* dW is csrc/conv3_wgrad.cu (`conv3_wgrad`), on the CUDA cores, with
-  `conv3_wgrad_plain` as its plain version;
+* dW is csrc/conv3_wgrad.cu (`conv3_wgrad`), on the CUDA cores: G
+  persistent CTAs per channel split (`wgrad_plan`) walk the live rows,
+  read each once for all 27 taps over cp.async-staged input planes, and
+  sum in a fixed order; x is read as the grid stores it.  Its plain
+  version is `conv3_wgrad_plain`;
 * dbias is one masked sum.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -133,10 +137,11 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp = ctypes.c_void_p
             ci = ctypes.c_int
-            for fn in (lib.pcgc_conv3, lib.pcgc_conv3_tc,
-                       lib.pcgc_conv3_wgrad):
+            for fn in (lib.pcgc_conv3, lib.pcgc_conv3_tc):
                 fn.restype = ci
                 fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            lib.pcgc_conv3_wgrad.restype = ci
+            lib.pcgc_conv3_wgrad.argtypes = [vp] * 8 + [ci] * 4 + [vp]
             _lib = lib
         return _lib
 
@@ -504,25 +509,86 @@ def conv3_wgrad_plain(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
     return dw
 
 
-def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
-                compute_dtype=None) -> torch.Tensor:
-    """conv3's weight gradient, f32 [3, 3, 3, ci, co], from the input grid
-    `bg` and the output gradient dy [nb_cap, VOL, co], read at the live
-    slots only.  CPU tensors take `conv3_wgrad_plain`; CUDA tensors launch
-    csrc/conv3_wgrad.cu (ci and co in {1, 4, 8, 16, 32, 64}) or raise.
-    Counts launches in `conv3_wgrad.launches`."""
-    cd = compute_dtype or B.COMPUTE_DTYPE
-    dev = bg.feats.device
-    if dev.type == "cpu":
-        return conv3_wgrad_plain(bg, dy, nbrs, cd)
-    if dev.type != "cuda":
-        raise ValueError(f"conv3_wgrad runs on cpu or cuda tensors, not {dev}")
+class WgradPlan(NamedTuple):
+    """How csrc/conv3_wgrad.cu splits one (ci, co, x dtype, compute dtype)
+    instance (its `make_plan` computes the same; the launch checks that
+    they agree).  Every CTA computes all 27 taps of one ci tile x co
+    tile."""
+
+    ci_tile: int
+    co_tile: int
+    tm: int      # a thread's accumulator tile, tm x tn floats
+    tn: int
+    tiles: int   # thread tiles per CTA
+    ksplit: int  # voxel phases: threads per tile
+    splits: int  # (ci tile, co tile) pairs
+    g: int       # persistent CTAs per split; rows of the `part` workspace
+    smem: int    # dynamic shared memory per CTA, bytes
+
+
+WGRAD_THREADS = 256
+WGRAD_ACC_MAX = 64  # accumulators per thread
+# dynamic shared memory a CTA may use beside its 8 KB list of slots
+WGRAD_SMEM_MAX = 232448 - 9216
+_WG_CTAS = 512  # G x splits, about
+_WG_AHEAD = 1   # planes staged ahead of their use
+
+
+def _wgrad_plan_for(ci, co, sx, sg, cit, cot) -> WgradPlan:
+    e = 27 * cit * cot
+    f = max(1 << (-(-e // WGRAD_THREADS) - 1).bit_length(),
+            min(16, cit * cot))
+    side = 8 if f >= 64 else 4 if f >= 16 else 2 if f >= 4 else 1
+    tm = min(cit, side)
+    tn = f // tm
+    if tn > cot:
+        tn, tm = cot, f // cot
+    tiles = e // f
+    ksplit = WGRAD_THREADS // tiles
+    splits = (ci // cit) * (co // cot)
+    # staged y rows are padded by 16 bytes against bank conflicts
+    ring = (3 + _WG_AHEAD) * HS * (HS * cit * sx + 16)
+    smem = max(ring + (1 + _WG_AHEAD) * WGRAD_THREADS * cot * sg,
+               ksplit * e * 4)
+    return WgradPlan(cit, cot, tm, tn, tiles, ksplit, splits,
+                     max(8, _WG_CTAS // splits), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(ci: int, co: int, x_dtype, compute_dtype) -> WgradPlan:
+    """The split of conv3_wgrad.cu for ci, co in {1, 4, 8, 16, 32, 64}, x
+    stored in `x_dtype` and dy in `compute_dtype`: the widest co tile,
+    then the widest ci tile, that keeps at most WGRAD_ACC_MAX accumulators
+    per thread and fits a ring of 4 staged x planes and two dy planes in
+    WGRAD_SMEM_MAX bytes of shared memory."""
+    sx, sg = x_dtype.itemsize, compute_dtype.itemsize
+    cot = co
+    while cot >= 1:
+        cit = ci
+        while cit >= 1:
+            p = _wgrad_plan_for(ci, co, sx, sg, cit, cot)
+            if p.tm * p.tn <= WGRAD_ACC_MAX and p.smem <= WGRAD_SMEM_MAX:
+                return p
+            cit //= 2
+        cot //= 2
+    raise NotImplementedError(f"no conv3_wgrad plan for ci={ci} co={co}")
+
+
+def _wgrad_inputs(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
+                  cd) -> tuple:
+    """Check conv3_wgrad's arguments and return what the kernel reads:
+    (x, dy, nbrs, mask) contiguous and aligned, x in the dtype the grid
+    stores (f32 or bf16: no cast copy), dy in the compute dtype."""
     nb, ci, co = bg.nb_cap, bg.channels, dy.shape[-1]
+    dev = bg.feats.device
     if B.BS != 16:
         raise NotImplementedError(
             f"the conv3_wgrad kernel is written for 16^3 blocks, not BS={B.BS}")
     if cd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv3_wgrad takes float32 or bfloat16, not {cd}")
+    if bg.feats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv3_wgrad reads float32 or bfloat16 features, "
+                         f"not {bg.feats.dtype}")
     if ci not in _CHANNELS or co not in _CHANNELS:
         raise NotImplementedError(
             f"conv3_wgrad has no instance for ci={ci} co={co}; "
@@ -542,19 +608,40 @@ def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
                     ("count", bg.count)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, feats on {dev}")
-    x = _aligned(bg.feats.to(cd), 16)
-    g = _aligned(dy.to(cd), 16)
-    nbrs = nbrs.contiguous()
-    mask = _aligned(bg.mask, 16)
-    part = torch.empty((nb, 27, ci, co), dtype=torch.float32, device=dev)
+    return (_aligned(bg.feats, 16), _aligned(dy.to(cd), 16),
+            nbrs.contiguous(), _aligned(bg.mask, 16))
+
+
+def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
+                compute_dtype=None) -> torch.Tensor:
+    """conv3's weight gradient, f32 [3, 3, 3, ci, co], from the input grid
+    `bg` and the output gradient dy [nb_cap, VOL, co], read at the live
+    slots only.  CPU tensors take `conv3_wgrad_plain`; CUDA tensors launch
+    csrc/conv3_wgrad.cu (ci and co in {1, 4, 8, 16, 32, 64}; x read as the
+    grid stores it, rounded to bf16 in the kernel under bf16 compute) with
+    `wgrad_plan`'s split, or raise.  Counts launches in
+    `conv3_wgrad.launches`."""
+    cd = compute_dtype or B.COMPUTE_DTYPE
+    dev = bg.feats.device
+    if dev.type == "cpu":
+        return conv3_wgrad_plain(bg, dy, nbrs, cd)
+    if dev.type != "cuda":
+        raise ValueError(f"conv3_wgrad runs on cpu or cuda tensors, not {dev}")
+    x, g, nbrs, mask = _wgrad_inputs(bg, dy, nbrs, cd)
+    ci, co = bg.channels, dy.shape[-1]
+    plan = wgrad_plan(ci, co, x.dtype, cd)
+    part = torch.empty((plan.g, 27, ci, co), dtype=torch.float32, device=dev)
     out = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
+    sel = (ctypes.c_int * 3)(plan.ci_tile, plan.co_tile, plan.g)
     rc = _load().pcgc_conv3_wgrad(
         x.data_ptr(), g.data_ptr(), nbrs.data_ptr(), mask.data_ptr(),
-        bg.count.data_ptr(), part.data_ptr(), out.data_ptr(), nb, ci, co,
+        bg.count.data_ptr(), part.data_ptr(), out.data_ptr(),
+        ctypes.addressof(sel), ci, co, int(x.dtype == torch.bfloat16),
         int(cd == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv3_wgrad kernel launch failed (code {rc}) "
-                           f"at nb={nb} ci={ci} co={co} dtype={cd}")
+                           f"at nb={bg.nb_cap} ci={ci} co={co} x "
+                           f"{x.dtype} compute {cd}")
     conv3_wgrad.launches += 1
     return out
 

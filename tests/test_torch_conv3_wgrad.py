@@ -1,0 +1,137 @@
+"""The plan and the argument checks of conv3's weight-gradient kernel
+(csrc/conv3_wgrad.cu), on the CPU.
+
+`wgrad_plan` mirrors the kernel's own `make_plan`: every CTA computes the
+27 taps of one (ci tile, co tile) split, each thread a tm x tn tile of one
+tap's block, over every ksplit-th voxel.  These tests walk that mapping as
+the kernel does and check that it covers every entry of dW exactly once
+and fits the card.  The kernel's results are held against
+`conv3_wgrad_plain` by chip_smoke.py phase 7a, and `conv3_wgrad_plain`
+against JAX by tests/test_torch_conv3_grad.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from pcgcv2_torch.ops import blocks as TB
+from pcgcv2_torch.ops import conv3 as TK
+
+CHANNELS = (1, 4, 8, 16, 32, 64)
+
+
+def _thread_entries(p, ci_tile, co_tile):
+    """Flat [tap, ci_tile, co_tile] entries of each active thread's tile,
+    as the kernel maps thread t: tile t % tiles, voxel phase t // tiles."""
+    mt, ntl = ci_tile // p.tm, co_tile // p.tn
+    out = []
+    for pt in range(p.tiles):
+        m0 = (pt // ntl) % mt * p.tm
+        n0 = pt % ntl * p.tn
+        tap = pt // (ntl * mt)
+        out.append([(tap * ci_tile + m0 + a) * co_tile + n0 + b
+                    for a in range(p.tm) for b in range(p.tn)])
+    return np.array(out)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (x as the grid stores it, compute dtype): the training path stores f32
+DTYPES = [(F32, F32), (F32, BF16), (BF16, BF16), (BF16, F32)]
+DTYPE_IDS = ["f32", "bf16", "bf16-stored", "bf16-stored-f32"]
+
+
+@pytest.mark.parametrize("x_dtype,cd", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("co", CHANNELS)
+@pytest.mark.parametrize("ci", CHANNELS)
+def test_wgrad_plan_covers_dw_once_and_fits(ci, co, x_dtype, cd):
+    p = TK.wgrad_plan(ci, co, x_dtype, cd)
+    assert ci % p.ci_tile == 0 and co % p.co_tile == 0
+    assert p.splits == (ci // p.ci_tile) * (co // p.co_tile)
+    # the threads of a CTA cover its 27 x ci_tile x co_tile sums once
+    ent = _thread_entries(p, p.ci_tile, p.co_tile)
+    assert np.array_equal(np.sort(ent.ravel()),
+                          np.arange(27 * p.ci_tile * p.co_tile))
+    assert p.tiles * p.ksplit <= TK.WGRAD_THREADS
+    assert p.tm * p.tn <= TK.WGRAD_ACC_MAX
+    # the splits (co tile fastest, as blockIdx.y) cover dW[27, ci, co] once
+    seen = np.zeros((27, ci, co), dtype=np.int64)
+    for split in range(p.splits):
+        ci0 = split // (co // p.co_tile) * p.ci_tile
+        co0 = split % (co // p.co_tile) * p.co_tile
+        seen[:, ci0:ci0 + p.ci_tile, co0:co0 + p.co_tile] += 1
+    assert (seen == 1).all()
+    # shared memory: the ring of 4 planes (y rows padded by 16 bytes) and
+    # two dy planes, or the k-split sums after them; with the 8 KB slot
+    # list within the 227 KB of a CTA
+    sx = torch.empty((), dtype=x_dtype).element_size()
+    sg = torch.empty((), dtype=cd).element_size()
+    ring = (4 * 18 * (18 * p.ci_tile * sx + 16)
+            + 2 * TK.WGRAD_THREADS * p.co_tile * sg)
+    assert p.smem == max(ring, p.ksplit * 27 * p.ci_tile * p.co_tile * 4)
+    assert p.smem + 4096 * 2 <= 227 * 1024
+    assert p.g * p.splits <= 512 and p.g >= 8
+
+
+def test_wgrad_plan_keeps_narrow_instances_whole():
+    """Splits come only where the accumulators or shared memory force
+    them: every pair with 27 ci co <= 16384 that fits runs in one split,
+    the stage-2 16 -> 4 among them, with 512 persistent CTAs."""
+    for x_dtype, cd in DTYPES:
+        p = TK.wgrad_plan(16, 4, x_dtype, cd)
+        assert (p.splits, p.g, p.ci_tile, p.co_tile) == (1, 512, 16, 4)
+    f32 = TK.wgrad_plan(64, 64, F32, F32)
+    assert (f32.ci_tile, f32.co_tile, f32.splits, f32.g) == (8, 64, 8, 64)
+    # f32 64 -> 16: a 64-channel ring (4 x 82,944 B) does not fit
+    assert TK.wgrad_plan(64, 16, F32, BF16).ci_tile == 32
+    assert TK.wgrad_plan(64, 8, BF16, BF16).ci_tile == 64
+
+
+def _meta_grid(nb=64, ci=16, feats_dtype=torch.float32):
+    m = "meta"
+    return TB.BlockGrid(
+        feats=torch.empty(nb, TB.VOL, ci, dtype=feats_dtype, device=m),
+        coords=torch.empty(nb, 4, dtype=torch.int32, device=m),
+        mask=torch.empty(nb, TB.VOL, dtype=torch.bool, device=m),
+        table=torch.empty(8, dtype=torch.int32, device=m),
+        count=torch.empty((), dtype=torch.int32, device=m),
+        dropped=torch.empty((), dtype=torch.int32, device=m),
+        stride=1, res=64, num_batches=1)
+
+
+def test_wgrad_reads_the_stored_grid_without_a_cast():
+    """bf16 compute on an f32-stored grid: the kernel is handed the grid's
+    own f32 feats (it rounds them to bf16 as it reads them), not a bf16
+    copy of the whole grid; dy comes in the compute dtype."""
+    bg = _meta_grid()
+    dy = torch.empty(64, TB.VOL, 4, dtype=torch.bfloat16, device="meta")
+    nbrs = torch.empty(64, 3, 3, 3, dtype=torch.int32, device="meta")
+    x, g, nb, mask = TK._wgrad_inputs(bg, dy, nbrs, torch.bfloat16)
+    assert x is bg.feats and x.dtype == torch.float32
+    assert g is dy and mask is bg.mask and nb is nbrs
+    # a bf16-stored grid is read as bf16, also under f32 compute
+    bg16 = _meta_grid(feats_dtype=torch.bfloat16)
+    x, g, _, _ = TK._wgrad_inputs(bg16, dy, nbrs, torch.float32)
+    assert x is bg16.feats and g.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bad", ["dy", "nbrs_dtype", "nbrs_shape", "mask",
+                                 "count", "channels", "feats_dtype"])
+def test_wgrad_inputs_raise(bad):
+    m = "meta"
+    bg = _meta_grid(feats_dtype=torch.float16 if bad == "feats_dtype"
+                    else torch.float32)
+    dy = torch.empty(64, TB.VOL, 3 if bad == "channels" else 4, device=m)
+    nbrs = torch.empty(64, 3, 3, 3, dtype=torch.int32, device=m)
+    if bad == "dy":
+        dy = torch.empty(32, TB.VOL, 4, device=m)
+    elif bad == "nbrs_dtype":
+        nbrs = nbrs.long()
+    elif bad == "nbrs_shape":
+        nbrs = torch.empty(64, 27, dtype=torch.int32, device=m)
+    elif bad == "mask":
+        bg = bg.replace(mask=torch.empty(64, TB.VOL, dtype=torch.uint8,
+                                         device=m))
+    elif bad == "count":
+        bg = bg.replace(count=torch.empty((), dtype=torch.int64, device=m))
+    err = NotImplementedError if bad == "channels" else ValueError
+    with pytest.raises(err):
+        TK._wgrad_inputs(bg, dy, nbrs, torch.bfloat16)
