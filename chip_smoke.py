@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase, as the check runs it
     python3 chip_smoke.py --phases 1,2 # card identity + kernel checks only
+    python3 chip_smoke.py --phases 1,8 # the parallel paths alone
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. card identity (nvidia-smi name and power limit); TF32 off.
@@ -37,18 +38,45 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. training (a batch of 8 random_surface_cloud(127, seed=s, density=2)
      clouds, 327,003 voxels, BlockPlan.for_training(524288, 128, 8)):
      a. one full-width training step per dtype (f32, bf16) with every
-        conv3 backward spied on: dX (conv3_tc.cu on the flipped weight)
-        and dW (conv3_wgrad.cu) against autograd through conv3_plain on
-        that call's own grid, dy and weight, a second dW launch on the
-        same inputs giving the same bits, with kernel / plain / library
-        (cuDNN through torch.nn.grad) times and the bound;
+        conv3 spied on: the 127 forward launches against conv3_plain on
+        their own inputs; dX (conv3_tc.cu on the flipped weight) and dW
+        (conv3_wgrad.cu) against autograd through conv3_plain on that
+        call's own grid, dy and weight, a second dW launch on the same
+        inputs giving the same bits, with kernel / plain / library (cuDNN
+        through torch.nn.grad) times and the bound;
      b. the full-width trainer step as scripts/train_rd.py runs it (remat
         on, alpha 2, beta 1, lr 8e-4), bf16 then f32: 20 steps on the
         batch, the median of steps 1-5, peak memory, forward / dX / dW
         launches per step (127 / 63 / 64, every forward and dX on the
         tensor cores), finite losses, no dropped block, a falling loss;
-     c. pcgcv2_torch.cli.train for one epoch on 20 such clouds written as
-        .ply (f32), and its checkpoint through Coder on the golden frame.
+     c. pcgcv2_torch.cli.train for one epoch (f32) on 20 synthetic clouds
+        that pcgcv2_torch.cli.generate_dataset --synthetic writes as .ply,
+        and its checkpoint through Coder on the golden frame.
+  8. the parallel paths (pcgcv2_torch/parallel) on the one card, bf16:
+     a. make_dp_train_step at world size 1 over NCCL: 3 steps on phase
+        7b's batch against 3 Trainer.steps from the same weights and seed
+        (two Trainer runs against each other first, for the spread):
+        losses within 1e-5 relative, parameters within 1e-5 of max |p|,
+        127 / 63 / 64 launches per step; step median, NCCL all-reduce ms;
+     b. make_dp_train_step at world size 2 over gloo, two spawned ranks on
+        the one card (4 clouds each, each rank's own plan): every conv3
+        launch of rank 0's first step (127 / 63 / 64) against the plain
+        versions on its own inputs, as 7a checks them (untimed); the
+        averaged gradients and updated parameters after the first step
+        against a single-process replica (within 1e-5 of max |g|, |p|);
+        per-rank step ms and peak memory;
+     c. make_spatial_decode_fn at world size 2 over gloo, the same two
+        ranks: the vox11 torus of 6b and the vox10 frame from Coder.encode's
+        bottleneck, each decoded twice per rank: first with every conv3
+        launch checked against conv3_plain on its own inputs (at the
+        clamped caps, vox11's stage 2 at the whole grid's 21504 candidate
+        blocks), then timed, the same output; the assembled set equal to
+        the monolithic and streamed decodes, dropped 0, the phase-6 bpp
+        and D1 gates, 33 conv3 launches per rank on the tensor cores;
+        per-rank wall, top-k and peak memory;
+     d. the same at world size 1 over NCCL on the vox10 frame.
+     The kernels are built before any rank starts; a rank that fails fails
+     the phase.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a CUDA device or without the pcgcv2_torch
@@ -124,6 +152,11 @@ TRAIN_LAUNCHES = (127, 127, 63, 63, 64)
 # (2^-9 relative) after sums in another order.
 TRAIN_TOL = {"dw": {"float32": 1e-4, "bfloat16": 1e-4},
              "dx": {"float32": 1e-4, "bfloat16": 2e-2}}
+# forward launches of a path checked on their own inputs (spy_forward)
+# against f32 conv3_plain, max abs error over max |ref|: dX's tolerances,
+# since dX is this kernel (the bf16 one is phase 2's TOL_BF16_REL)
+FWD_TOL = TRAIN_TOL["dx"]
+FWD_CHUNK = 512      # rows per piece of spy_forward's reference
 KERNEL_REPS = 10     # timed launches per kernel shape (median)
 VOX10_REPS = 3       # timed vox10 encode+decode reps per dtype (best)
 
@@ -840,13 +873,14 @@ def lib_grads(bg, nbrs, w, dy, cd):
     return (lambda: gi(h.shape, wl, go), lambda: gw(h, wl.shape, go))
 
 
-def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad):
+def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad,
+                   timing: bool = True):
     """One conv3 backward of a training step, on its own inputs: the input
     grid `bg`, dy masked to the live slots, and the kernels' dW and (but
     for the first conv) (weight, packed flip, dX).  Holds them against f32
     autograd through conv3_plain on the same rounded inputs, checks that a
-    second dW launch on the same inputs gives the same bits, and times the
-    kernels, the plain versions and cuDNN there."""
+    second dW launch on the same inputs gives the same bits, and (where
+    `timing`) times the kernels, the plain versions and cuDNN there."""
     import torch
 
     from pcgcv2_torch.ops import blocks as B
@@ -874,12 +908,6 @@ def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad):
     r["dw_same_bits"] = torch.equal(dw, real_wgrad(bg, dy, nbrs, cd))
     ok = r["dw_same_bits"] and (
         r["dw_max_abs_err"] <= TRAIN_TOL["dw"][dtype] * r["dw_max_abs_ref"])
-    lib_dx, lib_dw = lib_grads(bg, nbrs, weight, dy, cd)
-    r["dw_ms"] = cuda_ms(lambda: real_wgrad(bg, dy, nbrs, cd), KERNEL_REPS)
-    r["dw_plain_ms"] = cuda_ms(
-        lambda: K.conv3_wgrad_plain(bg, dy, nbrs, cd), 3)
-    r["dw_library_ms"] = cuda_ms(lib_dw, KERNEL_REPS)
-    r["dw_bytes_ms"], r["dw_ops_ms"] = wgrad_bound(bg, nbrs, ci, co, dtype)
     if dx is not None:
         _, packed_flip, got = dx
         lv = live[:, :, None].expand_as(rdx)
@@ -889,6 +917,17 @@ def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad):
         ok = ok and r["dx_zero_off_live"] and (
             r["dx_max_abs_err"]
             <= TRAIN_TOL["dx"][dtype] * r["dx_max_abs_ref"])
+    r["ok"] = ok
+    del rdx, rdw
+    if not timing:
+        return r
+    lib_dx, lib_dw = lib_grads(bg, nbrs, weight, dy, cd)
+    r["dw_ms"] = cuda_ms(lambda: real_wgrad(bg, dy, nbrs, cd), KERNEL_REPS)
+    r["dw_plain_ms"] = cuda_ms(
+        lambda: K.conv3_wgrad_plain(bg, dy, nbrs, cd), 3)
+    r["dw_library_ms"] = cuda_ms(lib_dw, KERNEL_REPS)
+    r["dw_bytes_ms"], r["dw_ops_ms"] = wgrad_bound(bg, nbrs, ci, co, dtype)
+    if dx is not None:
         gbg = bg.replace(feats=dy)
         wf = K.flip_weight(weight)
         r["dx_route"] = K.route(co, ci, cd)
@@ -901,15 +940,15 @@ def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad):
         # dX moves and computes what the forward conv (co -> ci) does
         r["dx_bytes_ms"], r["dx_ops_ms"] = conv3_bound(gbg, nbrs, co, ci,
                                                        dtype)
-    r["ok"] = ok
     return r
 
 
 @contextlib.contextmanager
-def spy_backward(rows: list):
+def spy_backward(rows: list, timing: bool = True):
     """While open, every conv3 backward (`Conv3Fn` calls conv3_dgrad, then
     conv3_wgrad) goes through the kernels as usual and is then checked
-    and timed on its own inputs by `check_backward`, one row each."""
+    (and, where `timing`, timed) on its own inputs by `check_backward`, one
+    row each.  The check's own launches are taken out of the counts."""
     import functools
 
     from pcgcv2_torch.ops import conv3 as K
@@ -927,9 +966,12 @@ def spy_backward(rows: list):
     def wgrad(bg, dy, nbrs, compute_dtype=None):
         dw = real_wgrad(bg, dy, nbrs, compute_dtype)
         assert len(pending) <= 1, "a dX without its dW"
+        counts = launch_counts()
         rows.append(check_backward(
             bg, dy, nbrs, compute_dtype, dw,
-            pending.pop() if pending else None, real_dgrad, real_wgrad))
+            pending.pop() if pending else None, real_dgrad, real_wgrad,
+            timing))
+        set_counts(counts)
         return dw
 
     K.conv3_dgrad, K.conv3_wgrad = dgrad, wgrad
@@ -937,20 +979,136 @@ def spy_backward(rows: list):
         yield
     finally:
         K.conv3_dgrad, K.conv3_wgrad = real_dgrad, real_wgrad
+        # the wrapped functions counted on the spies' copies of the counts
+        for real, spy in ((real_dgrad, dgrad), (real_wgrad, wgrad)):
+            for k in ("launches", "tc_launches"):
+                if hasattr(real, k):
+                    setattr(real, k, getattr(spy, k))
+
+
+def check_forward(kernel: str, bg, nbrs, weight, bias, cd, got) -> dict:
+    """One forward conv3 launch of a path, on its own inputs: `got` (the
+    kernel's output feats) against conv3_plain's arithmetic in f32 on the
+    same rounded inputs, FWD_CHUNK rows at a time (so the reference fits
+    beside two ranks' decodes), masked as with_feats masks; rows past the
+    count must be zero."""
+    import torch
+
+    from pcgcv2_torch.ops import conv3 as K
+
+    dtype = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[cd]
+    n = int(bg.count)
+    w = weight.to(cd).float()
+    b = None if bias is None else bias.to(cd).float()
+    err = ref_max = 0.0
+    with torch.no_grad():
+        for a in range(0, n, FWD_CHUNK):
+            e = min(n, a + FWD_CHUNK)
+            h = K.halo(bg.feats, nbrs[a:e]).to(cd)
+            ref = K.conv3_dense(h, w, b, torch.float32)
+            ref = torch.where(bg.mask[a:e, :, None], ref, 0)
+            err = max(err, float((got[a:e].float() - ref).abs().max()))
+            ref_max = max(ref_max, float(ref.abs().max()))
+            del h, ref
+        zero_past = n == bg.nb_cap or float(got[n:].abs().max()) == 0.0
+    return {"kernel": kernel, "nb_cap": bg.nb_cap, "live_rows": n,
+            "ci": bg.channels, "co": weight.shape[-1], "dtype": dtype,
+            "max_abs_err": err, "max_abs_ref": ref_max,
+            "zero_past_count": zero_past,
+            "ok": zero_past and err <= FWD_TOL[dtype] * ref_max}
+
+
+@contextlib.contextmanager
+def spy_forward(rows: list):
+    """While open, every forward conv3 launch (`ops.conv3._conv3` calls
+    `launch`, looked up at call time) runs as usual and is then checked on
+    its own inputs by `check_forward`, one row each.  The check launches
+    no kernel, so the counts are the path's own."""
+    import functools
+
+    from pcgcv2_torch.ops import conv3 as K
+
+    real = K.launch
+
+    @functools.wraps(real)
+    def launch(kernel, bg, nbrs, weight, bias, cd, packed=None):
+        out = real(kernel, bg, nbrs, weight, bias, cd, packed)
+        rows.append(check_forward(kernel, bg, nbrs, weight, bias, cd,
+                                  out.feats))
+        return out
+
+    K.launch = launch
+    try:
+        yield
+    finally:
+        K.launch = real
+
+
+def forward_summary(rows: list, what: str, card: str = "") -> dict:
+    """spy_forward's rows: logged by shape, summarised, and gated (every
+    launch within FWD_TOL of max |ref|, zeros past the count)."""
+    shapes = {}
+    for r in rows:
+        shapes.setdefault((r["nb_cap"], r["ci"], r["co"], r["dtype"]),
+                          []).append(r)
+    worst = max((r["max_abs_err"] / max(r["max_abs_ref"], 1e-30)
+                 for r in rows), default=0.0)
+    log(f"{what}: {len(rows)} forward conv3 launches checked against "
+        f"conv3_plain on their own inputs, {len(shapes)} shapes "
+        "(nb_cap, ci, co, dtype: launches) "
+        + ", ".join(f"{k[0]}/{k[1]}/{k[2]}/{k[3][:4]}: {len(v)}"
+                    for k, v in sorted(shapes.items()))
+        + f"; worst err/|ref| {worst:.3g} (tolerance "
+        f"{FWD_TOL}) {'OK' if all(r['ok'] for r in rows) else 'FAIL'}"
+        + (f"  [{card}]" if card else ""))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{what}: conv3 disagrees with conv3_plain in "
+                             f"{len(bad)} of {len(rows)} launches; first: "
+                             f"{bad[0]}")
+    return {"launches": len(rows), "worst_rel_err": worst,
+            "shapes": [list(k) + [len(v)] for k, v in sorted(shapes.items())]}
+
+
+def backward_summary(rows: list, what: str) -> dict:
+    """spy_backward's untimed rows: summarised and gated with 7a's
+    tolerances (TRAIN_TOL)."""
+    worst = {p: max((r[f"{p}_max_abs_err"] / r[f"{p}_max_abs_ref"]
+                     for r in rows if p == "dw" or r["dx"]), default=0.0)
+             for p in ("dx", "dw")}
+    n_dx = sum(r["dx"] for r in rows)
+    ok = all(r["ok"] for r in rows)
+    log(f"{what}: {n_dx} dX and {len(rows)} dW calls checked against "
+        f"autograd through conv3_plain on their own inputs; worst err/|ref| "
+        f"dX {worst['dx']:.3g}, dW {worst['dw']:.3g} (tolerance "
+        f"{TRAIN_TOL}); every dW's second launch the same bits "
+        f"{all(r['dw_same_bits'] for r in rows)} {'OK' if ok else 'FAIL'}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{what}: conv3 backward kernels disagree in "
+                             f"{len(bad)} of {len(rows)} calls; first: "
+                             f"{bad[0]}")
+    return {"dx": n_dx, "dw": len(rows), "worst_rel_err": worst}
+
+
+def train_config():
+    """scripts/train_rd.py's recipe: alpha 2, beta 1, lr 8e-4."""
+    from pcgcv2_torch.config import TrainConfig
+
+    return TrainConfig(alpha=2.0, beta=1.0, lr=8e-4, batch_size=TRAIN_BATCH)
 
 
 def make_trainer(dtype: str, workdir: str, device):
     """The trainer of scripts/train_rd.py at full width: `ModelConfig()`
     (remat on), alpha 2, beta 1, lr 8e-4, for_training(524288, 128, 8),
     in `dtype` compute."""
-    from pcgcv2_torch.config import BlockPlan, ModelConfig, TrainConfig
+    from pcgcv2_torch.config import BlockPlan, ModelConfig
     from pcgcv2_torch.ops import blocks as B
     from pcgcv2_torch.train.trainer import Trainer
 
     B.set_compute_dtype(dtype)
     plan = BlockPlan.for_training(TRAIN_CAPACITY, TRAIN_RES, TRAIN_BATCH)
-    cfg = TrainConfig(alpha=2.0, beta=1.0, lr=8e-4, batch_size=TRAIN_BATCH)
-    return Trainer(cfg, plan, TRAIN_CAPACITY, ModelConfig(),
+    return Trainer(train_config(), plan, TRAIN_CAPACITY, ModelConfig(),
                    logdir=os.path.join(workdir, f"tl_{dtype}"),
                    ckptdir=os.path.join(workdir, f"tc_{dtype}"),
                    seed=0, device=device)
@@ -958,19 +1116,21 @@ def make_trainer(dtype: str, workdir: str, device):
 
 def phase_train_kernels(device, workdir: str, clouds):
     """7a: one full-width training step per dtype (f32, bf16) with every
-    conv3 backward spied on: conv3_dgrad (conv3_tc.cu on the flipped
-    weight) and conv3_wgrad (conv3_wgrad.cu) held against autograd through
-    conv3_plain and timed on the step's own inputs."""
+    conv3 spied on: the forward launches (conv3_tc.cu) held against
+    conv3_plain, conv3_dgrad (conv3_tc.cu on the flipped weight) and
+    conv3_wgrad (conv3_wgrad.cu) against autograd through conv3_plain and
+    timed, all on the step's own inputs."""
     import torch
 
-    log("== phase 7a: conv3 backward kernels of one training step vs "
-        "autograd through conv3_plain, on the step's own inputs ==")
+    log("== phase 7a: conv3 kernels of one training step vs conv3_plain "
+        "(forward) and autograd through it (backward), on the step's own "
+        "inputs ==")
     result = {}
     for dtype in ("float32", "bfloat16"):
         tr = make_trainer(dtype, f"{workdir}/7a", device)
         coords, valid = tr._collate(clouds)
-        rows = []
-        with spy_backward(rows):
+        rows, fwd = [], []
+        with spy_forward(fwd), spy_backward(rows):
             tr.step(coords, valid)
         torch.cuda.synchronize()
         del tr
@@ -987,6 +1147,9 @@ def phase_train_kernels(device, workdir: str, clouds):
         assert (n_dx, len(rows)) == TRAIN_LAUNCHES[2::2], \
             f"{n_dx} dX and {len(rows)} dW calls in a step ({dtype})"
         result[dtype] = rows
+        result[f"forward_{dtype}"] = forward_summary(fwd, f"7a {dtype}")
+        assert len(fwd) == TRAIN_LAUNCHES[0], \
+            f"{len(fwd)} forward launches in a step ({dtype})"
     return result
 
 
@@ -1040,7 +1203,7 @@ def per_step_sum(rows, key: str) -> float:
     return sum(r[key] for r in sel)
 
 
-def backward_counts():
+def launch_counts():
     """(forward, forward on the tensor cores, dX, dX on the tensor cores,
     dW) conv3 launches since the counts were last set to 0."""
     from pcgcv2_torch.ops import conv3 as K
@@ -1049,12 +1212,11 @@ def backward_counts():
             K.conv3_dgrad.tc_launches, K.conv3_wgrad.launches)
 
 
-def zero_counts() -> None:
+def set_counts(counts=(0, 0, 0, 0, 0)) -> None:
     from pcgcv2_torch.ops import conv3 as K
 
-    K.conv3.launches = K.conv3.tc_launches = 0
-    K.conv3_dgrad.launches = K.conv3_dgrad.tc_launches = 0
-    K.conv3_wgrad.launches = 0
+    (K.conv3.launches, K.conv3.tc_launches, K.conv3_dgrad.launches,
+     K.conv3_dgrad.tc_launches, K.conv3_wgrad.launches) = counts
 
 
 def phase_train_steps(device, workdir: str, card: str, clouds):
@@ -1081,7 +1243,7 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for i in range(TRAIN_STEPS):
-            zero_counts()
+            set_counts()
             last = i == TRAIN_STEPS - 1
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) \
@@ -1091,7 +1253,7 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
                 d, _, n_drop = tr.step(coords, valid)
                 torch.cuda.synchronize()
                 sec = time.perf_counter() - t0
-            counts = backward_counts()
+            counts = launch_counts()
             if last:  # the last step runs under the profiler
                 result[f"profile_{dtype}"] = train_profile(prof, sec, dtype)
             s = {"ms": sec * 1e3, "loss": d["loss"].item(),
@@ -1171,37 +1333,38 @@ def train_profile(prof, sec: float, dtype: str) -> dict:
 
 
 def phase_train_cli(device, workdir: str):
-    """7c: pcgcv2_torch.cli.train on 20 clouds written as .ply, one epoch
-    in f32 from a scratch working directory; its checkpoint through Coder
-    on the golden frame decodes to the input count."""
+    """7c: pcgcv2_torch.cli.generate_dataset writes 20 synthetic clouds as
+    .ply, pcgcv2_torch.cli.train takes one epoch on them in f32 from a
+    scratch working directory, and its checkpoint through Coder on the
+    golden frame decodes to the input count."""
     import numpy as np
 
     from pcgcv2_torch.checkpoint import load_params
+    from pcgcv2_torch.cli import generate_dataset
     from pcgcv2_torch.cli import train as cli
     from pcgcv2_torch.codec.coder import Coder
-    from pcgcv2_torch.data.io import write_ply_ascii_geo
-    from pcgcv2_torch.data.synthetic import random_surface_cloud, torus_cloud
+    from pcgcv2_torch.data.synthetic import torus_cloud
     from pcgcv2_torch.ops import blocks as B
 
-    log("== phase 7c: pcgcv2_torch.cli.train, one epoch, f32; its "
-        "checkpoint through Coder ==")
+    log("== phase 7c: pcgcv2_torch.cli.generate_dataset -> cli.train, one "
+        "epoch, f32; its checkpoint through Coder ==")
     B.set_compute_dtype("float32")
     data = os.path.join(workdir, "train_ply")
-    os.makedirs(data)
-    for s in range(20):
-        write_ply_ascii_geo(os.path.join(data, f"c{s:02d}.ply"),
-                            random_surface_cloud(127, seed=s, density=2.0))
+    # random_surface_cloud(127, seed=s) for s = 0..19, at the CLI's density
+    assert generate_dataset.main([
+        "--synthetic", "20", "--resolution", "126", "--out_filetype", "ply",
+        "--pc_rootdir", data]) == 20
     run_dir = os.path.join(workdir, "train_run")
     os.makedirs(run_dir)
     cwd = os.getcwd()
     os.chdir(run_dir)
     try:
-        zero_counts()
+        set_counts()
         t0 = time.perf_counter()
         tr = cli.main(["--dataset", data, "--epoch", "1", "--device",
                        device.type, "--prefix", "smoke"])
         sec = time.perf_counter() - t0
-        counts = backward_counts()
+        counts = launch_counts()
     finally:
         os.chdir(cwd)
     ckpts = sorted(Path(run_dir, "ckpts", "smoke").glob("*.ckpt"))
@@ -1274,9 +1437,545 @@ def train_kernel_entries(train) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the parallel paths (pcgcv2_torch/parallel) on the one card
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3         # steps of each DP run (8a: and of each Trainer run)
+DP_RANKS = 2         # 8b and 8c: two ranks share the one card over gloo
+# 8a and 8b against Trainer.step / the single-process replica: losses
+# relative, parameters and gradients over each tensor's max |.|
+DP_TOL = 1e-5
+# rows per cloud of the padded [B, P, 3] batch: above the batch's largest
+# cloud (66,203 voxels)
+DP_ITEM_CAP = 1 << 17
+# conv3 launches per rank per spatial decode: stages 0-1 whole (22), the
+# rank's slab of stage 2 (11)
+SPATIAL_LAUNCHES = 33
+
+
+def dp_plan(world: int):
+    """A rank's plan: for_training sized for its share of the batch (at
+    world size 1, phase 7b's plan)."""
+    from pcgcv2_torch.config import BlockPlan
+
+    return BlockPlan.for_training(TRAIN_CAPACITY // world, TRAIN_RES,
+                                  TRAIN_BATCH // world)
+
+
+def dp_batch(clouds):
+    """The training batch as pad_batch gives it: [8, DP_ITEM_CAP, 3] +
+    [8], no cloud cut."""
+    from pcgcv2_torch.parallel.train import pad_batch
+
+    coords, counts = pad_batch(clouds, DP_ITEM_CAP)
+    assert counts.tolist() == [len(c) for c in clouds], "a cloud was cut"
+    return coords, counts
+
+
+def rel_spread(a: dict, b: dict) -> float:
+    """max over the tensors of max |a - b| / max |a|."""
+    return max(float((a[k] - b[k]).abs().max()
+                     / a[k].abs().max().clamp_min(1e-30)) for k in a)
+
+
+def named_copy(model, grads: bool = False) -> dict:
+    return {k: (p.grad if grads else p).detach().float().cpu().clone()
+            for k, p in model.named_parameters()}
+
+
+def dp_model(state, num_batches: int, device):
+    """A full-width PCCModel from `state` and the trainer's Adam over it."""
+    from pcgcv2_torch.config import ModelConfig
+    from pcgcv2_torch.models.pcc import PCCModel
+    from pcgcv2_torch.train.trainer import make_optimizer
+
+    cfg = train_config()
+    model = PCCModel(ModelConfig(), num_batches=num_batches).to(device)
+    model.load_state_dict(state)
+    return model, make_optimizer(model.parameters(), cfg.lr,
+                                 cfg.weight_decay)
+
+
+def dp_steps(step, model, coords, counts, device, world: int = 1,
+             check: bool = False):
+    """DP_STEPS steps of `step` on the global batch: per step its ms, mean
+    loss, dropped blocks and conv3 launches; the gradients and parameters
+    after the first step; where `check`, every conv3 launch of the first
+    step checked on its own inputs (spy_forward, untimed spy_backward):
+    the rows.  At world > 1 the peak memory counts from the second step."""
+    import torch
+    import torch.distributed as dist
+
+    ct = torch.from_numpy(coords).to(device)
+    nt = torch.from_numpy(counts).to(device)
+    steps, first, fwd, bwd = [], None, [], []
+    for i in range(DP_STEPS):
+        if world > 1:
+            dist.barrier()
+        set_counts()
+        with contextlib.ExitStack() as spies:
+            if check and i == 0:
+                spies.enter_context(spy_forward(fwd))
+                spies.enter_context(spy_backward(bwd, timing=False))
+            sec, (loss, dropped) = timed(lambda: step(ct, nt))
+        steps.append({"ms": sec * 1e3, "loss": loss.item(),
+                      "dropped": int(dropped), "launches": launch_counts()})
+        if i == 0:
+            first = (named_copy(model, grads=True), named_copy(model))
+            if world > 1:
+                torch.cuda.reset_peak_memory_stats()
+    return steps, first, (fwd, bwd)
+
+
+def dp_world1(device, workdir: str, card: str, group, clouds):
+    """8a: DP_STEPS steps of make_dp_train_step at world size 1 (NCCL)
+    against DP_STEPS Trainer.steps from the same weights and generator
+    seed; first two Trainer runs against each other (the spread)."""
+    import torch
+    import torch.distributed as dist
+
+    from pcgcv2_torch.parallel import mesh as M
+    from pcgcv2_torch.parallel.train import make_dp_train_step
+
+    log("== phase 8a: DP step at world size 1 over NCCL vs Trainer.step "
+        "(bf16, 8 clouds, remat on) ==")
+    plan = dp_plan(1)
+    runs = []
+    for tag in ("a", "b"):
+        tr = make_trainer("bfloat16", f"{workdir}/8a_{tag}", device)
+        state0 = {k: v.detach().clone()
+                  for k, v in tr.model.state_dict().items()}
+        tr.generator.manual_seed(0)  # init_weights drew from it
+        coords, valid = tr._collate(clouds)
+        losses, ms = [], []
+        for _ in range(DP_STEPS):
+            sec, (d, _, n_drop) = timed(lambda: tr.step(coords, valid))
+            assert int(n_drop) == 0, "8a trainer step dropped blocks"
+            losses.append(d["loss"].item())
+            ms.append(sec * 1e3)
+        runs.append((state0, losses, named_copy(tr.model), ms))
+        del tr, coords, valid
+        torch.cuda.empty_cache()
+    (s_a, l_a, p_a, ms_a), (s_b, l_b, p_b, _) = runs
+    assert all(torch.equal(s_a[k], s_b[k]) for k in s_a), "8a init differs"
+    spread_loss = max(abs(x - y) / abs(x) for x, y in zip(l_a, l_b))
+    spread_p = rel_spread(p_a, p_b)
+
+    model, opt = dp_model(s_a, TRAIN_BATCH, device)
+    cfg = train_config()
+    step = make_dp_train_step(model, opt, group, cfg.alpha, cfg.beta, plan,
+                              device=device, seed=0)
+    coords, counts = dp_batch(clouds)
+    steps, _, _ = dp_steps(step, model, coords, counts, device)
+    p_dp = named_copy(model)
+    grads = [p.grad for p in model.parameters()]
+    ar_ms = cuda_ms(lambda: M.all_reduce_mean_(grads, group))
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    nccl_ms = cuda_ms(lambda: dist.all_reduce(flat, group=group))
+    flat_mb = flat.numel() * flat.element_size() / 2**20
+    d_loss = max(abs(s["loss"] - x) / abs(x) for s, x in zip(steps, l_a))
+    d_p = rel_spread(p_a, p_dp)
+    med = statistics.median(s["ms"] for s in steps)
+    for i, s in enumerate(steps):
+        log(f"8a dp step {i}: {s['ms']:.2f} ms  loss {s['loss']:.6f} "
+            f"(Trainer {l_a[i]:.6f})  dropped {s['dropped']}  conv3 fwd "
+            f"{s['launches'][0]} ({s['launches'][1]} tc)  dX "
+            f"{s['launches'][2]} ({s['launches'][3]} tc)  dW "
+            f"{s['launches'][4]}")
+    log(f"8a: two Trainer runs differ by {spread_loss:.3g} (loss, relative) "
+        f"and {spread_p:.3g} (parameters, of max |p|); the DP step from "
+        f"Trainer by {d_loss:.3g} and {d_p:.3g} (gate {DP_TOL}) after "
+        f"{DP_STEPS} steps; step median {med:.2f} ms (Trainer "
+        f"{statistics.median(ms_a):.2f}); the {flat_mb:.2f} MiB flat "
+        f"gradient: NCCL all-reduce {nccl_ms:.4f} ms, the whole "
+        f"all_reduce_mean_ (cat, all-reduce, divide, copy back to "
+        f"{len(grads)} tensors) {ar_ms:.4f} ms  [{card}]")
+    for s in steps:
+        assert s["dropped"] == 0, "8a dp step dropped blocks"
+        assert s["launches"] == TRAIN_LAUNCHES, \
+            f"8a launches {s['launches']}, want {TRAIN_LAUNCHES}"
+    assert d_loss <= DP_TOL, f"8a loss differs by {d_loss}"
+    assert d_p <= DP_TOL, f"8a parameters differ by {d_p}"
+    del model, opt, step, grads, flat
+    torch.cuda.empty_cache()
+    return {"steps": steps, "step_ms_median": med,
+            "trainer_ms": ms_a, "trainer_losses": l_a,
+            "spread_loss": spread_loss, "spread_params": spread_p,
+            "diff_loss": d_loss, "diff_params": d_p,
+            "allreduce_mean_ms": ar_ms, "nccl_allreduce_ms": nccl_ms,
+            "flat_mib": flat_mb,
+            "launches": dict(zip(("fwd", "fwd_tc", "dx", "dx_tc", "dw"),
+                                 steps[-1]["launches"]))}, s_a
+
+
+def spatial_frames(device, workdir: str, card: str):
+    """The frames of 8c and 8d, ckpts/r4 in bf16: the vox11 torus of phase
+    6b and the vox10 frame, each through Coder.encode (the bottleneck the
+    ranks get, as arrays) and decoded here monolithic (model.decode_fn)
+    and streamed (8 slabs): the references."""
+    import numpy as np
+    import torch
+
+    from pcgcv2_torch.checkpoint import load_params
+    from pcgcv2_torch.codec.coder import Coder
+    from pcgcv2_torch.data.synthetic import torus_cloud
+    from pcgcv2_torch.ops import blocks as B
+
+    params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
+    B.set_compute_dtype("bfloat16")
+    frames = {}
+    for name, cloud, res in (
+            ("vox11", torus_cloud(1390, density=4.0, seed=11), 2048),
+            ("vox10", torus_cloud(684, density=4.0, seed=0), 1024)):
+        coder = Coder(params, os.path.join(workdir, f"p8_{name}"), res=res,
+                      device=device, streamed_slabs=8)
+        ds, feats = coder.encode(cloud)
+        with open(coder.filename + "_num_points.bin", "rb") as f:
+            head = np.frombuffer(f.read(28), dtype=np.int32)
+        streamed = coder.decode()
+        mono = monolithic_decode(coder, "")
+        rows = np.zeros((len(ds), 4), np.int32)
+        rows[:, 1:] = ds * 8
+        frames[name] = {
+            "cloud": cloud, "res": res, "streamed": streamed, "mono": mono,
+            "bits": sum(8 * v for v in coder.bitstream_bytes().values()),
+            "rank_input": {"plan": coder._plan_from_counts(head[3:7]),
+                           "rows": rows, "feats": feats.astype(np.float32),
+                           "nums": head[:3].copy()}}
+        log(f"8 frame {name}: {len(cloud)} voxels, bottleneck {len(ds)} "
+            f"rows, plan {frames[name]['rank_input']['plan'].nb}; decoded "
+            f"monolithic {len(mono)}, streamed {len(streamed)}, symmetric "
+            f"difference {sym_diff(mono, streamed)}")
+        del coder
+        torch.cuda.empty_cache()
+    return frames, params
+
+
+def spatial_run(model, frame: dict, group, device, keep_points: bool):
+    """Two spatial decodes of `frame` on this rank.  The first checks every
+    forward conv3 launch on its own inputs (spy_forward); the second is
+    the one measured: wall, the top-k's wall (a spy on
+    ops.blocks.topk_mask), peak memory, conv3 launches, and the stacked
+    output's digest (the assembled points where `keep_points`), which must
+    be the first decode's."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from pcgcv2_torch.ops import blocks as B
+    from pcgcv2_torch.ops import conv3 as K
+    from pcgcv2_torch.parallel import spatial as S
+
+    nums = frame["nums"]
+    fn = S.make_spatial_decode_fn(model, frame["plan"], group, int(nums[2]),
+                                  device=device)
+    args = (torch.from_numpy(frame["rows"]).to(device),
+            torch.from_numpy(frame["feats"]).to(device),
+            torch.ones(len(frame["rows"]), dtype=torch.bool, device=device),
+            torch.from_numpy(nums).to(device))
+
+    def digest(oc, counts):
+        return hashlib.sha256(oc.cpu().numpy().tobytes()
+                              + counts.cpu().numpy().tobytes()).hexdigest()
+
+    checked = []
+    dist.barrier()
+    with torch.inference_mode(), spy_forward(checked):
+        first = digest(*fn(*args)[:2])
+    topk, real = [], B.topk_mask
+
+    def spy(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        topk.append(time.perf_counter() - t0)
+        return out
+
+    B.topk_mask = spy
+    try:
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        set_counts()
+        with torch.inference_mode():
+            sec, (oc, counts, dropped) = timed(lambda: fn(*args))
+        launches = (K.conv3.launches, K.conv3.tc_launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        B.topk_mask = real
+    h = digest(oc, counts)
+    oc, counts = oc.cpu().numpy(), counts.cpu().numpy()
+    n = dist.get_world_size()
+    return {"points": S.assemble_decoded(oc, counts, n) if keep_points
+            else None,
+            "digest": h, "same_as_checked": h == first, "checked": checked,
+            "counts": counts.tolist(), "dropped": int(dropped), "sec": sec,
+            "topk_s": sum(topk), "launches": launches, "peak": peak}
+
+
+def check_spatial(name: str, frame: dict, outs: list, card: str,
+                  tag: str) -> dict:
+    """8c/8d gates: every rank's SPATIAL_LAUNCHES forward conv3 launches
+    against conv3_plain on their own inputs (the checked decode), the
+    timed decode's output that of the checked one and the same on every
+    rank, nothing dropped, the assembled set equal to the monolithic and
+    the streamed decodes, the phase-6 bpp and D1 gates, SPATIAL_LAUNCHES
+    conv3 launches per rank, all on the tensor cores."""
+    import numpy as np
+
+    from pcgcv2_torch.eval.metrics import pc_metrics
+
+    checked = [forward_summary(o["checked"], f"{tag} {name} rank {r}", card)
+               for r, o in enumerate(outs)]
+    for r, o in enumerate(outs):
+        assert len(o["checked"]) == SPATIAL_LAUNCHES, \
+            f"{tag} {name} rank {r}: {len(o['checked'])} launches checked"
+        assert o["same_as_checked"], \
+            f"{tag} {name} rank {r}: the timed decode differs from the first"
+    pts, n = outs[0]["points"], len(frame["cloud"])
+    d_mono, d_str = sym_diff(pts, frame["mono"]), sym_diff(
+        pts, frame["streamed"])
+    d1 = pc_metrics(frame["cloud"], np.unique(pts, axis=0), frame["res"],
+                    with_d2=False)["mseF,PSNR (p2point)"]
+    bpp = frame["bits"] / n
+    for r, o in enumerate(outs):
+        log(f"{tag} {name} rank {r}: {o['sec']:.4f} s (top-k "
+            f"{o['topk_s']:.4f} s)  peak {o['peak'] / 2**30:.2f} GiB  "
+            f"counts {o['counts']}  dropped {o['dropped']}  conv3 launches "
+            f"{o['launches'][0]} ({o['launches'][1]} tensor-core)  [{card}]")
+    log(f"{tag} {name}: decoded {len(pts)} / {n}; symmetric difference to "
+        f"the monolithic decode {d_mono}, to the streamed {d_str}  bpp "
+        f"{bpp:.6f}  D1 {d1:.4f} dB")
+    assert len({o["digest"] for o in outs}) == 1, f"{tag} ranks disagree"
+    assert all(o["dropped"] == 0 for o in outs), f"{tag} {name} dropped"
+    assert len(pts) == n and d_mono == 0 and d_str == 0, \
+        f"{tag} {name}: {len(pts)} points, differences {d_mono} / {d_str}"
+    want_bpp, want_d1 = (VOX11_GATES if name == "vox11"
+                         else VOX10_GATES)["bfloat16"]
+    assert abs(bpp - want_bpp) <= 0.005 * want_bpp, f"{tag} {name} bpp"
+    assert abs(d1 - want_d1) <= 0.05, f"{tag} {name} D1 {d1}"
+    for o in outs:
+        assert o["launches"] == (SPATIAL_LAUNCHES,) * 2, \
+            f"{tag} {name} launches {o['launches']}"
+    return {"decoded": len(pts), "sym_diff_mono": d_mono,
+            "sym_diff_streamed": d_str, "bpp": bpp, "d1_psnr": d1,
+            "checked": checked,
+            "ranks": [{k: o[k] for k in ("sec", "topk_s", "peak", "counts",
+                                         "launches", "dropped")}
+                      for o in outs]}
+
+
+def parallel_rank(rank: int, world: int, init: str, dp, frames: dict,
+                  params):
+    """A rank of 8b and 8c (spawned; world DP_RANKS on the one card over
+    gloo): DP_STEPS DP steps on its 4 clouds at its plan (dp_plan), rank
+    0 checking every conv3 launch of the first, then the spatial decode
+    of each frame (checked, then timed)."""
+    import torch
+    import torch.distributed as dist
+
+    from pcgcv2_torch.checkpoint import params_from_jax
+    from pcgcv2_torch.config import ModelConfig
+    from pcgcv2_torch.ops import blocks as B
+    from pcgcv2_torch.parallel import mesh as M
+    from pcgcv2_torch.parallel.train import make_dp_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group, dev = M.init_group(rank, world, init, device="cuda",
+                              backend="gloo")
+    try:
+        B.set_compute_dtype("bfloat16")
+        state0, coords, counts = dp
+        model, opt = dp_model(state0, TRAIN_BATCH // world, dev)
+        cfg = train_config()
+        step = make_dp_train_step(model, opt, group, cfg.alpha, cfg.beta,
+                                  dp_plan(world), device=dev, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        steps, first, checked = dp_steps(step, model, coords, counts, dev,
+                                         world, check=rank == 0)
+        out = {"dp": {"steps": steps, "grads": first[0],
+                      "params": first[1], "checked": checked,
+                      "peak": torch.cuda.max_memory_allocated()}}
+        del model, opt, step
+        torch.cuda.empty_cache()
+        model = params_from_jax(params, ModelConfig(), dev)
+        out["spatial"] = {name: spatial_run(model, f, group, dev, rank == 0)
+                          for name, f in frames.items()}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def check_dp_ranks(device, ranks: list, state0, coords, counts,
+                   card: str) -> dict:
+    """8b gates: every conv3 launch of rank 0's first step (at this plan's
+    caps) against the plain versions on its own inputs (phase 7a's gates);
+    the ranks' averaged gradients and updated parameters after their first
+    step, identical on both ranks and within DP_TOL of one single-process
+    replica on the card (per-shard backward with each rank's noise
+    generator, gradients averaged by hand, one Adam step); launches per
+    rank and step."""
+    import torch
+
+    from pcgcv2_torch.parallel.train import collate_on_device
+    from pcgcv2_torch.train.loss import rd_loss
+
+    world, local = len(ranks), TRAIN_BATCH // len(ranks)
+    fwd, bwd = ranks[0]["dp"]["checked"]
+    checked = {"forward": forward_summary(fwd, "8b rank 0 step 0", card),
+               "backward": backward_summary(bwd, "8b rank 0 step 0")}
+    assert (len(fwd), checked["backward"]["dx"], len(bwd)) \
+        == TRAIN_LAUNCHES[::2], "8b: the check missed conv3 launches"
+    plan = dp_plan(world)
+    model, opt = dp_model(state0, local, device)
+    cfg = train_config()
+    named = dict(model.named_parameters())
+    total = {k: torch.zeros_like(p) for k, p in named.items()}
+    losses = []
+    for r in range(world):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(r)  # rank r's generator: seed 0 + r
+        sl = slice(r * local, (r + 1) * local)
+        rows, valid = collate_on_device(
+            torch.from_numpy(coords[sl]).to(device),
+            torch.from_numpy(counts[sl]).to(device))
+        out = model(rows, valid, plan, training=True, generator=gen)
+        loss = rd_loss(out, cfg.alpha, cfg.beta, "train")["loss"]
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        losses.append(loss.item())
+        for k, p in named.items():
+            total[k] += p.grad
+        del out, loss
+    for k, p in named.items():
+        p.grad = total[k] / world
+    ref_g = named_copy(model, grads=True)
+    opt.step()
+    ref_p = named_copy(model)
+    del model, opt, total
+    torch.cuda.empty_cache()
+    ref_loss = sum(losses) / world
+    d_g = max(rel_spread(ref_g, r["dp"]["grads"]) for r in ranks)
+    d_p = max(rel_spread(ref_p, r["dp"]["params"]) for r in ranks)
+    d_loss = max(abs(r["dp"]["steps"][0]["loss"] - ref_loss) / abs(ref_loss)
+                 for r in ranks)
+    same = all(torch.equal(ranks[0]["dp"][w][k], r["dp"][w][k])
+               for r in ranks for w in ("grads", "params")
+               for k in ref_g)
+    for i, r in enumerate(ranks):
+        st = r["dp"]["steps"]
+        ms = ", ".join("%.2f" % s["ms"] for s in st)
+        losses = ", ".join("%.6f" % s["loss"] for s in st)
+        log(f"8b rank {i}: steps {ms} ms (the first warms up and, on rank "
+            f"0, is checked)  losses {losses}  peak of steps 1-"
+            f"{DP_STEPS - 1} {r['dp']['peak'] / 2**30:.2f} GiB  launches "
+            f"per step {st[-1]['launches']}  [{card}; two ranks share the "
+            f"card's SMs: not a scale-out time]")
+    log(f"8b: ranks identical {same}; against the replica: loss "
+        f"{d_loss:.3g} (relative), gradients {d_g:.3g}, parameters "
+        f"{d_p:.3g} (of max |.|; gate {DP_TOL})")
+    assert same, "8b ranks hold different gradients or parameters"
+    assert d_loss <= DP_TOL and d_g <= DP_TOL and d_p <= DP_TOL, \
+        f"8b differs from the replica: {d_loss}, {d_g}, {d_p}"
+    for r in ranks:
+        for s in r["dp"]["steps"]:
+            assert s["dropped"] == 0, "8b step dropped blocks"
+            assert s["launches"] == TRAIN_LAUNCHES, \
+                f"8b launches {s['launches']}, want {TRAIN_LAUNCHES}"
+    return {"diff_loss": d_loss, "diff_grads": d_g, "diff_params": d_p,
+            "checked": checked,
+            "ranks": [{"step_ms": [s["ms"] for s in r["dp"]["steps"]],
+                       "step_ms_median": statistics.median(
+                           s["ms"] for s in r["dp"]["steps"][1:]),
+                       "losses": [s["loss"] for s in r["dp"]["steps"]],
+                       "peak": r["dp"]["peak"]} for r in ranks],
+            "launches": dict(zip(("fwd", "fwd_tc", "dx", "dx_tc", "dw"),
+                                 ranks[0]["dp"]["steps"][-1]["launches"]))}
+
+
+def phase_parallel(device, workdir: str, card: str):
+    """Phase 8: 8a (DP, one rank, NCCL) and 8d (spatial decode of vox10,
+    one rank, NCCL) in this process; then 8b (DP) and 8c (spatial decode
+    of vox11 and vox10) on DP_RANKS spawned ranks sharing the card over
+    gloo.  The kernels are built before (main), so no rank builds."""
+    import torch
+    import torch.distributed as dist
+
+    from pcgcv2_torch.checkpoint import params_from_jax
+    from pcgcv2_torch.config import ModelConfig
+    from pcgcv2_torch.parallel import mesh as M
+
+    clouds = train_batch()
+    result = {}
+    group, _ = M.init_group(0, 1, f"file://{workdir}/nccl_store",
+                            device=device)
+    try:
+        result["8a"], state0 = dp_world1(device, workdir, card, group,
+                                         clouds)
+        frames, params = spatial_frames(device, workdir, card)
+        log("== phase 8d: spatial decode at world size 1 over NCCL, vox10 "
+            "frame ==")
+        model = params_from_jax(params, ModelConfig(), device)
+        out = spatial_run(model, frames["vox10"]["rank_input"], group,
+                          device, True)
+        result["8d"] = check_spatial("vox10", frames["vox10"], [out], card,
+                                     "8d")
+        del model
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"== phase 8b/8c: {DP_RANKS} ranks on the one card over gloo: DP "
+        f"step (4 clouds per rank), spatial decode of vox11 and vox10 ==")
+    coords, counts = dp_batch(clouds)
+    state0 = {k: v.cpu() for k, v in state0.items()}
+    t0 = time.perf_counter()
+    ranks = M.spawn(parallel_rank, DP_RANKS, (state0, coords, counts),
+                    {k: f["rank_input"] for k, f in frames.items()}, params)
+    result["ranks_s"] = time.perf_counter() - t0
+    log(f"8b/8c: {DP_RANKS} ranks spawned, ran and joined in "
+        f"{result['ranks_s']:.1f} s")
+    result["8b"] = check_dp_ranks(device, ranks, state0, coords, counts,
+                                  card)
+    result["8c"] = {name: check_spatial(name, frames[name],
+                                        [r["spatial"][name] for r in ranks],
+                                        card, "8c")
+                    for name in frames}
+    return result
+
+
+def parallel_launches(par: dict) -> dict:
+    """The conv3 launches phase 8 read, per kernel and path, and the worst
+    error over max |ref| of the launches it checked on their own inputs
+    (8b rank 0's first step, 8c and 8d every rank's checked decode)."""
+    def sp(tag, name):
+        out = par[tag][name] if tag == "8c" else par[tag]
+        return [r["launches"][0] for r in out["ranks"]]
+
+    spatial = [par["8d"]] + list(par["8c"].values())
+    checked_bwd = par["8b"]["checked"]["backward"]["worst_rel_err"]
+    return {
+        "conv3": {"dp_world1_per_step": par["8a"]["launches"]["fwd"],
+                  "dp_world2_per_rank_step": par["8b"]["launches"]["fwd"],
+                  "spatial_vox11_world2_per_rank": sp("8c", "vox11"),
+                  "spatial_vox10_world2_per_rank": sp("8c", "vox10"),
+                  "spatial_vox10_world1": sp("8d", None),
+                  "checked_max_rel_err": max(
+                      [par["8b"]["checked"]["forward"]["worst_rel_err"]]
+                      + [c["worst_rel_err"] for f in spatial
+                         for c in f["checked"]])},
+        **{name: {"dp_world1_per_step": par["8a"]["launches"][key],
+                  "dp_world2_per_rank_step": par["8b"]["launches"][key],
+                  "checked_max_rel_err": checked_bwd[key]}
+           for name, key in (("conv3_dgrad", "dx"), ("conv3_wgrad", "dw"))},
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -1320,7 +2019,9 @@ def main(argv=None) -> int:
                 (5, "profile", lambda: phase_profile(device, workdir)),
                 (6, "streamed", lambda: phase_streamed(device, workdir,
                                                        card)),
-                (7, "train", lambda: phase_train(device, workdir, card))):
+                (7, "train", lambda: phase_train(device, workdir, card)),
+                (8, "parallel", lambda: phase_parallel(device, workdir,
+                                                       card))):
             if n in phases:
                 t = time.perf_counter()
                 report[key] = run()
@@ -1392,6 +2093,10 @@ def main(argv=None) -> int:
         })
     if "train" in report:
         kernels += train_kernel_entries(report["train"])
+    if "parallel" in report:
+        launches = parallel_launches(report["parallel"])
+        for k in kernels:
+            k["parallel_launches"] = launches[k["name"]]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -27,6 +27,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
+
+from pcgcv2_torch.ops import collectives
 
 BS = int(os.environ.get("PCGC_BLOCK_SIZE", "16"))
 VOL = BS ** 3
@@ -558,6 +561,7 @@ def topk_mask(
     scores: torch.Tensor,
     nums: torch.Tensor,
     live_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """bool [nb_cap, VOL] — per-batch-item top-k over occupied slots.
 
@@ -565,7 +569,13 @@ def topk_mask(
     masked counts find the k-th largest score bit pattern per batch item;
     ties at the threshold are admitted in block-scan order.  k is clamped
     to the live slots, and k = 0 keeps nothing.  Counts are exact integers.
-    """
+
+    `group` (a process group; JAX's `psum_axis`) makes the top-k global
+    over its ranks: every round's counts and the count above the threshold
+    are summed over the group, and the ties of lower ranks are ranked
+    first, so the ranks must hold consecutive pieces of the block-scan
+    order in rank order (x-slabs of one grid, as the spatial decode cuts
+    them)."""
     nbatch = bg.num_batches
     device = bg.device
     live = bg.mask & bg.valid[:, None]
@@ -576,10 +586,14 @@ def topk_mask(
     brow_c = brow.clamp(0, nbatch - 1)
     k = torch.as_tensor(nums, device=device).long().reshape(nbatch)
 
-    def per_batch(x):  # [nb, VOL] bool -> int64 [B] counts
+    def local_count(x):  # [nb, VOL] bool -> int64 [B] counts on this rank
         seg = torch.zeros(nbatch + 1, dtype=torch.int64, device=device)
         seg.index_add_(0, brow, x.sum(dim=1))
         return seg[:nbatch]
+
+    def per_batch(x):  # ... over the group
+        c = local_count(x)
+        return c if group is None else collectives.all_reduce_sum(c, group)
 
     t = torch.zeros(nbatch, dtype=torch.int64, device=device)
     for i in range(32):
@@ -595,6 +609,10 @@ def topk_mask(
     starts = torch.searchsorted(brow, _arange(nbatch, device)) * VOL
     base = torch.cat([csum.new_zeros(1), csum])[starts]
     rank = (csum - 1).reshape(bg.nb_cap, VOL) - base[brow_c][:, None]
+    if group is not None:  # the ties of lower ranks come first
+        all_eq = collectives.all_gather(local_count(eq), group)  # [n, B]
+        me = torch.distributed.get_rank(group)
+        rank = rank + all_eq[:me].sum(dim=0)[brow_c][:, None]
     admit = eq & (rank < quota[brow_c][:, None])
     return (gt | admit) & live
 
