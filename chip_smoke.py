@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase, as the check runs it
     python3 chip_smoke.py --phases 1,2 # card identity + kernel checks only
     python3 chip_smoke.py --phases 1,8 # the parallel paths alone
+    python3 chip_smoke.py --phases 1,9 # 8^3 blocks (PCGC_BLOCK_SIZE=8)
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. card identity (nvidia-smi name and power limit); TF32 off.
@@ -19,9 +20,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      a warm-up), conv3 launches per encode+decode (64, all on the tensor
      cores), peak device memory; bpp and D1 gates in both dtypes.
   5. torch.profiler breakdown of one encode+decode per dtype (written to
-     OUT_DIR), and the share of empty output tiles of the tensor-core
-     convs on this frame per dtype (CTA slabs counted as 4 x-planes of 16
-     y rows; the f32 ci = 64 CTAs cover half of that).
+     OUT_DIR), with the device time under aten::where, and the share of
+     empty output tiles of the tensor-core convs on this frame per dtype
+     (m16 tiles, warp tiles, CTAs of 4 x-planes of 16 y rows; the f32
+     ci = 64 CTAs cover half of that).
   6. the streamed decode (phase 2 also checks conv3 at its vox11 slab
      shapes):
      a. the vox10 frame decoded in 8 slabs against the monolithic decode,
@@ -51,7 +53,10 @@ Phases (each prints its own lines; any failure exits non-zero):
         tensor cores), finite losses, no dropped block, a falling loss;
      c. pcgcv2_torch.cli.train for one epoch (f32) on 20 synthetic clouds
         that pcgcv2_torch.cli.generate_dataset --synthetic writes as .ply,
-        and its checkpoint through Coder on the golden frame.
+        and its checkpoint through Coder on the golden frame;
+     d. Trainer.train_scanned against Trainer.train, bf16, in turns on
+        epochs of 10 batches of the 8 clouds: wall per step, the same
+        127 / 63 / 64 launches per step.
   8. the parallel paths (pcgcv2_torch/parallel) on the one card, bf16:
      a. make_dp_train_step at world size 1 over NCCL: 3 steps on phase
         7b's batch against 3 Trainer.steps from the same weights and seed
@@ -77,6 +82,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      d. the same at world size 1 over NCCL on the vox10 frame.
      The kernels are built before any rank starts; a rank that fails fails
      the phase.
+  9. 8^3 blocks (PCGC_BLOCK_SIZE=8), in a child process (the block side
+     is read at import; it loads the library this process built and
+     writes its results to a JSON file that this process reads and
+     prints); full width, ckpts/r4 and tests/golden/golden.ckpt:
+     a. one vox10 encode + decode per dtype, every conv3 forward spied on:
+        all 64 on the 8^3 tensor-core instance, each held against
+        conv3_plain on its own inputs (f32 1e-4, bf16 2e-2 of max |ref|,
+        as 7a and 8 hold real inputs; the 16^3 kernel's errors on the
+        same frame beside them), each shape timed on its first launch
+        (kernel, plain, F.conv3d on the halo) with its bound; per-frame
+        sums;
+     b. the golden triple in f32, phase 3's gates;
+     c. the vox10 frame in bf16 and f32 (phase 4's timings and gates),
+        its block caps and dense slots beside this process's 16^3 ones,
+        a profile as phase 5's, and the frame in 8 slabs, 0 points from
+        the monolithic decode;
+     d. phase 7a's checks of one training step per dtype (127 / 63 / 64
+        launches on the 8^3 instances) and 10 trainer steps per dtype.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a CUDA device or without the pcgcv2_torch
@@ -140,6 +163,8 @@ VOX11_GATES = {"bfloat16": (0.494696, 74.9098), "float32": (0.495046, 74.9102)}
 # phase 7: the training batch and its plan
 TRAIN_BATCH, TRAIN_RES, TRAIN_CAPACITY = 8, 128, 524288
 TRAIN_STEPS = 20
+SCANNED_BATCHES = 10  # 7d: batches per epoch of train_scanned and train
+BS8_TRAIN_STEPS = 10  # 9d: trainer steps per dtype at 8^3 blocks
 # conv3 launches per training step with remat: (forward, of which tensor
 # cores, dX, of which tensor cores, dW).  Remat runs each forward twice but
 # the encoder's last conv, which lies outside the checkpointed scales; the
@@ -162,7 +187,13 @@ VOX10_REPS = 3       # timed vox10 encode+decode reps per dtype (best)
 
 
 def log(*a):
+    """Print a line, and append it to OUT_DIR/chip_smoke.log (the whole
+    run's lines, also those of phase 9's child, beyond the end of the
+    output that a caller may keep)."""
     print(*a, flush=True)
+    if OUT_DIR.is_dir():
+        with open(OUT_DIR / "chip_smoke.log", "a") as f:
+            print(*a, file=f)
 
 
 def card_identity() -> str:
@@ -380,7 +411,8 @@ def run_frame(coder, cloud, postfix: str):
     return t1 - t0, t2 - t1, dec, K.conv3.launches, K.conv3.tc_launches
 
 
-def phase_golden(device, workdir: str):
+def phase_golden(device, workdir: str,
+                 title: str = "phase 3: golden triple, full width, float32"):
     import numpy as np
 
     from pcgcv2_torch.checkpoint import load_params
@@ -389,7 +421,7 @@ def phase_golden(device, workdir: str):
     from pcgcv2_torch.eval.metrics import pc_metrics
     from pcgcv2_torch.ops import blocks as B
 
-    log("== phase 3: golden triple, full width, float32 ==")
+    log(f"== {title} ==")
     B.set_compute_dtype("float32")
     exp = json.loads((ROOT / "tests/golden/expected.json").read_text())
     # the frame of scripts/make_golden.py: res 256, torus 170, density 2
@@ -414,7 +446,8 @@ def phase_golden(device, workdir: str):
             "decoded": len(dec), "launches": launches}
 
 
-def phase_vox10(device, workdir: str, card: str):
+def phase_vox10(device, workdir: str, card: str,
+                title: str = "phase 4: vox10 frame, ckpts/r4, full width"):
     import numpy as np
     import torch
 
@@ -424,7 +457,7 @@ def phase_vox10(device, workdir: str, card: str):
     from pcgcv2_torch.eval.metrics import pc_metrics
     from pcgcv2_torch.ops import blocks as B
 
-    log("== phase 4: vox10 frame, ckpts/r4, full width ==")
+    log(f"== {title} ==")
     cloud = torus_cloud(684, density=4.0, seed=0)
     n = len(cloud)
     params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
@@ -469,10 +502,13 @@ def phase_vox10(device, workdir: str, card: str):
 
 def empty_tiles(coder, cloud) -> dict:
     """Share of empty output tiles over the tensor-core conv3 calls of one
-    encode + decode, from the masks with plain torch: per m16 tile (one
-    (x, y) row of 16 z), per warp tile (2 rows: the kernel skips its MMAs)
-    and per CTA slab (4 x-planes: the kernel skips staging too), over the
-    live rows; each also weighted by the call's dense work 27*ci*co."""
+    encode + decode, from the masks with plain torch: per m16 tile (16
+    consecutive (y, z) voxels of an x-plane: one row of 16 z at BS = 16,
+    two rows of 8 at BS = 8), per warp tile (two m16 tiles: the kernel
+    skips its MMAs) and per CTA (4 x-planes at BS = 16, the whole block at
+    BS = 8: the kernel skips staging too; the f32 ci = 64 CTAs of 16^3
+    blocks cover half of that), over the live rows; each also weighted by
+    the call's dense work 27*ci*co."""
     import torch
 
     from pcgcv2_torch.models import layers
@@ -480,18 +516,19 @@ def empty_tiles(coder, cloud) -> dict:
     from pcgcv2_torch.ops import conv3 as K
 
     real = layers.conv3
-    tally = {k: [0, 0, 0.0, 0.0] for k in ("row16", "warp32", "slab4")}
+    tally = {k: [0, 0, 0.0, 0.0] for k in ("m16", "warp32", "cta")}
 
     def spy(bg, nbrs, weight, bias=None, compute_dtype=None, packed=None,
             **kw):
         ci, co = bg.channels, weight.shape[-1]
-        if K.route(ci, co, compute_dtype or B.COMPUTE_DTYPE) == "tc":
+        cd = compute_dtype or B.COMPUTE_DTYPE
+        if K.route(ci, co, cd) == "tc":
             n = int(bg.count)
-            m = bg.mask[:n].reshape(n, B.BS, B.BS, B.BS)
-            rows = m.any(-1)
-            for name, occ in (("row16", rows),
-                              ("warp32", rows.reshape(n, B.BS, 8, 2).any(-1)),
-                              ("slab4", m.reshape(n, 4, -1).any(-1))):
+            m = bg.mask[:n].reshape(n, B.BS, B.BS * B.BS)  # x, (y, z)
+            xp = K.tc_plan(ci, co, cd).xp
+            for name, occ in (("m16", m.reshape(n, B.BS, -1, 16).any(-1)),
+                              ("warp32", m.reshape(n, B.BS, -1, 32).any(-1)),
+                              ("cta", m.reshape(n, B.BS // xp, -1).any(-1))):
                 empty = occ.numel() - int(occ.sum())
                 t = tally[name]
                 t[0] += empty
@@ -510,7 +547,19 @@ def empty_tiles(coder, cloud) -> dict:
                    "work_share": t[2] / t[3]} for name, t in tally.items()}
 
 
-def phase_profile(device, workdir: str):
+def where_device_ms(ka) -> float:
+    """Device time of the kernels aten::where launched, by self time: a
+    where with a scalar operand dispatches to aten::where again, so the
+    totals count its kernels twice."""
+    attr = ("self_device_time_total"
+            if hasattr(ka[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    return sum(getattr(e, attr) for e in ka if e.key == "aten::where") / 1e3
+
+
+def phase_profile(device, workdir: str,
+                  title: str = "phase 5: profiler breakdown, one vox10 "
+                  "encode + decode", tag: str = ""):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -519,7 +568,7 @@ def phase_profile(device, workdir: str):
     from pcgcv2_torch.data.synthetic import torus_cloud
     from pcgcv2_torch.ops import blocks as B
 
-    log("== phase 5: profiler breakdown, one vox10 encode + decode ==")
+    log(f"== {title} ==")
     cloud = torus_cloud(684, density=4.0, seed=0)
     params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
     OUT_DIR.mkdir(exist_ok=True)
@@ -546,19 +595,22 @@ def phase_profile(device, workdir: str):
         conv_n = sum(e.count for e in conv)
         tc_ms = sum(getattr(e, attr) for e in conv
                     if "conv3_tc_kernel" in e.key) / 1e3
+        where_ms = where_device_ms(ka)
         wall_ms = (enc_s + dec_s) * 1e3
-        (OUT_DIR / f"profile_{dtype}.txt").write_text(
+        (OUT_DIR / f"profile{tag}_{dtype}.txt").write_text(
             ka.table(sort_by=attr, row_limit=60))
         summary[dtype] = {
             "wall_ms": wall_ms, "enc_ms": enc_s * 1e3, "dec_ms": dec_s * 1e3,
             "device_ms": dev_ms, "conv3_ms": conv_ms, "conv3_launches": conv_n,
-            "conv3_tc_ms": tc_ms, "idle_share": 1.0 - dev_ms / wall_ms,
+            "conv3_tc_ms": tc_ms, "where_ms": where_ms,
+            "idle_share": 1.0 - dev_ms / wall_ms,
         }
-        log(f"profile {dtype}: wall {wall_ms:.2f} ms (enc {enc_s * 1e3:.2f} "
-            f"+ dec {dec_s * 1e3:.2f}); device kernels {dev_ms:.2f} ms, of "
-            f"which conv3 {conv_ms:.2f} ms in {conv_n} launches (tensor-core "
-            f"{tc_ms:.2f} ms); device idle "
-            f"{100 * (1 - dev_ms / wall_ms):.1f}% of wall")
+        log(f"profile{tag} {dtype}: wall {wall_ms:.2f} ms (enc "
+            f"{enc_s * 1e3:.2f} + dec {dec_s * 1e3:.2f}); device kernels "
+            f"{dev_ms:.2f} ms, of which conv3 {conv_ms:.2f} ms in {conv_n} "
+            f"launches (tensor-core {tc_ms:.2f} ms), aten::where "
+            f"{where_ms:.2f} ms ({100 * where_ms / dev_ms:.1f}%); device "
+            f"idle {100 * (1 - dev_ms / wall_ms):.1f}% of wall")
         for e in kernels[:12]:
             log(f"  {getattr(e, attr) / 1e3:9.3f} ms  x{e.count:<5d} "
                 f"{e.key[:100]}")
@@ -653,24 +705,22 @@ def monolithic_decode(coder, postfix: str):
     return B.host_extract(bc.cpu().numpy(), bits.cpu().numpy())
 
 
-def phase_streamed(device, workdir: str, card: str):
+def streamed_vox10(device, workdir: str, card: str, params,
+                   rounds: int = 4) -> dict:
+    """The vox10 frame decoded in 8 slabs against the monolithic decode,
+    bf16 and f32, in turns: same count, the symmetric difference of the
+    point sets, the vox10 gates, 110 launches on the tensor cores.  Round
+    0 warms both up and the rest are timed (best of), or with one round
+    that round is timed."""
     import numpy as np
     import torch
 
-    from pcgcv2_torch.checkpoint import load_params
-    from pcgcv2_torch.cli.test import run_sweep
-    from pcgcv2_torch.codec.coder import Coder, block_counts
-    from pcgcv2_torch.config import BlockPlan
-    from pcgcv2_torch.data.io import write_ply_ascii_geo
+    from pcgcv2_torch.codec.coder import Coder
     from pcgcv2_torch.data.synthetic import torus_cloud
     from pcgcv2_torch.eval.metrics import pc_metrics
     from pcgcv2_torch.ops import blocks as B
 
-    params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
     result = {}
-
-    # (a) vox10 frame, 8 slabs against the monolithic decode
-    log("== phase 6a: vox10 streamed decode (8 slabs) vs monolithic ==")
     cloud = torus_cloud(684, density=4.0, seed=0)
     n = len(cloud)
     for dtype in ("bfloat16", "float32"):
@@ -681,12 +731,12 @@ def phase_streamed(device, workdir: str, card: str):
         bits = sum(8 * v for v in coder.bitstream_bytes().values())
         times = {0: [], 8: []}
         runs = {}
-        for rnd in range(4):  # round 0 warms both up; then best of 3
+        for rnd in range(rounds):
             for slabs in (0, 8):  # in turns: monolithic, streamed
                 coder.streamed_slabs = slabs
                 (sec, dec), launches, tc = counted(
                     lambda: timed(coder.decode))
-                if rnd:
+                if rnd or rounds == 1:
                     times[slabs].append(sec)
                 runs[slabs] = (dec, launches, tc)
         best = {k: min(v) for k, v in times.items()}
@@ -699,9 +749,10 @@ def phase_streamed(device, workdir: str, card: str):
         log(f"vox10 {dtype}: streamed decoded {len(streamed)} / {n}, "
             f"monolithic {len(mono)}; symmetric difference {diff} points "
             f"({100 * diff / n:.4f}%)  bpp {bits / n:.6f}  D1 {d1:.4f} dB  "
-            f"decode best of 3: monolithic {best[0]:.4f} s, streamed "
-            f"{best[8]:.4f} s, ratio {ratio:.3f}  conv3 launches of the "
-            f"streamed decode {s_launches} ({s_tc} tensor-core)  [{card}]")
+            f"decode best of {len(times[0])}: monolithic {best[0]:.4f} s, "
+            f"streamed {best[8]:.4f} s, ratio {ratio:.3f}  conv3 launches "
+            f"of the streamed decode {s_launches} ({s_tc} tensor-core)  "
+            f"[{card}]")
         assert len(streamed) == len(mono) == n, "vox10 streamed count"
         assert diff <= 1e-4 * n, f"vox10 streamed differs by {diff} points"
         want_bpp, want_d1 = VOX10_GATES[dtype]
@@ -716,6 +767,27 @@ def phase_streamed(device, workdir: str, card: str):
         }
         del coder
         torch.cuda.empty_cache()
+    return result
+
+
+def phase_streamed(device, workdir: str, card: str):
+    import numpy as np
+    import torch
+
+    from pcgcv2_torch.checkpoint import load_params
+    from pcgcv2_torch.cli.test import run_sweep
+    from pcgcv2_torch.codec.coder import Coder, block_counts
+    from pcgcv2_torch.config import BlockPlan
+    from pcgcv2_torch.data.io import write_ply_ascii_geo
+    from pcgcv2_torch.data.synthetic import torus_cloud
+    from pcgcv2_torch.eval.metrics import pc_metrics
+    from pcgcv2_torch.ops import blocks as B
+
+    params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
+
+    # (a) vox10 frame, 8 slabs against the monolithic decode
+    log("== phase 6a: vox10 streamed decode (8 slabs) vs monolithic ==")
+    result = streamed_vox10(device, workdir, card, params)
 
     # (b) vox11-class frame, whole (scaling factor 1), streamed by default
     log("== phase 6b: vox11-class frame (res 2048), streamed decode ==")
@@ -861,11 +933,12 @@ def lib_grads(bg, nbrs, w, dy, cd):
     dense part only."""
     import torch
 
+    from pcgcv2_torch.ops import blocks as B
     from pcgcv2_torch.ops import conv3 as K
 
     n = int(bg.count)
     h = K.halo(bg.feats.to(cd), nbrs[:n]).permute(0, 4, 1, 2, 3).contiguous()
-    go = dy[:n].to(cd).reshape(n, 16, 16, 16, -1).permute(
+    go = dy[:n].to(cd).reshape(n, B.BS, B.BS, B.BS, -1).permute(
         0, 4, 1, 2, 3).contiguous()
     wl = w.to(cd).permute(4, 3, 0, 1, 2).contiguous()
     gi = torch.nn.grad.conv3d_input
@@ -1114,7 +1187,8 @@ def make_trainer(dtype: str, workdir: str, device):
                    seed=0, device=device)
 
 
-def phase_train_kernels(device, workdir: str, clouds):
+def phase_train_kernels(device, workdir: str, clouds,
+                        title: str = "phase 7a"):
     """7a: one full-width training step per dtype (f32, bf16) with every
     conv3 spied on: the forward launches (conv3_tc.cu) held against
     conv3_plain, conv3_dgrad (conv3_tc.cu on the flipped weight) and
@@ -1122,7 +1196,7 @@ def phase_train_kernels(device, workdir: str, clouds):
     timed, all on the step's own inputs."""
     import torch
 
-    log("== phase 7a: conv3 kernels of one training step vs conv3_plain "
+    log(f"== {title}: conv3 kernels of one training step vs conv3_plain "
         "(forward) and autograd through it (backward), on the step's own "
         "inputs ==")
     result = {}
@@ -1147,7 +1221,7 @@ def phase_train_kernels(device, workdir: str, clouds):
         assert (n_dx, len(rows)) == TRAIN_LAUNCHES[2::2], \
             f"{n_dx} dX and {len(rows)} dW calls in a step ({dtype})"
         result[dtype] = rows
-        result[f"forward_{dtype}"] = forward_summary(fwd, f"7a {dtype}")
+        result[f"forward_{dtype}"] = forward_summary(fwd, f"{title} {dtype}")
         assert len(fwd) == TRAIN_LAUNCHES[0], \
             f"{len(fwd)} forward launches in a step ({dtype})"
     return result
@@ -1219,17 +1293,20 @@ def set_counts(counts=(0, 0, 0, 0, 0)) -> None:
      K.conv3_dgrad.tc_launches, K.conv3_wgrad.launches) = counts
 
 
-def phase_train_steps(device, workdir: str, card: str, clouds):
+def phase_train_steps(device, workdir: str, card: str, clouds,
+                      n_steps: int = TRAIN_STEPS, title: str = "phase 7b",
+                      tag: str = ""):
     """7b: trainer steps at full width on one fixed batch, bf16 then f32:
-    a warm-up step, 5 timed steps, then steps up to TRAIN_STEPS; launches
-    per step, loss terms, peak memory."""
+    a warm-up step, 5 timed steps, then steps up to n_steps, the last
+    under the profiler (its table to OUT_DIR/profile_train{tag}_*.txt);
+    launches per step, loss terms, peak memory."""
     import torch
 
     from pcgcv2_torch.config import BlockPlan
 
     from torch.profiler import ProfilerActivity, profile
 
-    log("== phase 7b: full-width training steps (8 clouds, "
+    log(f"== {title}: full-width training steps (8 clouds, "
         "for_training(524288, 128, 8), remat on) ==")
     result = {}
     plan = BlockPlan.for_training(TRAIN_CAPACITY, TRAIN_RES, TRAIN_BATCH)
@@ -1242,9 +1319,9 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
         steps = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for i in range(TRAIN_STEPS):
+        for i in range(n_steps):
             set_counts()
-            last = i == TRAIN_STEPS - 1
+            last = i == n_steps - 1
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) \
                 if last else contextlib.nullcontext()
@@ -1255,7 +1332,8 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
                 sec = time.perf_counter() - t0
             counts = launch_counts()
             if last:  # the last step runs under the profiler
-                result[f"profile_{dtype}"] = train_profile(prof, sec, dtype)
+                result[f"profile_{dtype}"] = train_profile(prof, sec, dtype,
+                                                           tag)
             s = {"ms": sec * 1e3, "loss": d["loss"].item(),
                  "bce": d["bce"].item(), "bpp": d["bpp"].item(),
                  "dropped": int(n_drop), "launches": counts}
@@ -1276,11 +1354,11 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
         log(f"train {dtype}: step median {statistics.median(timed):.2f} ms "
             f"(steps 1-5: {', '.join(f'{t:.2f}' for t in timed)})  peak "
             f"device memory {peak / 2**30:.2f} GiB  loss step 0 {first:.5f} "
-            f"-> step {TRAIN_STEPS - 1} {last:.5f}  [{card}]")
+            f"-> step {n_steps - 1} {last:.5f}  [{card}]")
         assert last < first, f"train {dtype}: loss did not fall"
         result[dtype] = {
             "step_ms_median": statistics.median(timed), "step_ms": timed,
-            "profiled_step_ms": steps[-1]["ms"],
+            "last_step_ms": steps[-1]["ms"],
             "warmup_ms": steps[0]["ms"], "peak_bytes": peak,
             "losses": [s["loss"] for s in steps],
             "bce": [s["bce"] for s in steps],
@@ -1295,7 +1373,7 @@ def phase_train_steps(device, workdir: str, card: str, clouds):
     return result
 
 
-def train_profile(prof, sec: float, dtype: str) -> dict:
+def train_profile(prof, sec: float, dtype: str, tag: str = "") -> dict:
     """Device time of one profiled training step by kernel: the conv3
     kernels (forward and dX share conv3_tc_kernel; dW is the two
     conv3_wgrad kernels), everything else, and the device idle share of
@@ -1317,17 +1395,20 @@ def train_profile(prof, sec: float, dtype: str) -> dict:
     dw_ms = ms(lambda k: "wgrad_" in k)
     wall_ms = sec * 1e3
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / f"profile_train_{dtype}.txt").write_text(
+    where_ms = where_device_ms(ka)
+    (OUT_DIR / f"profile_train{tag}_{dtype}.txt").write_text(
         ka.table(sort_by=attr, row_limit=60))
-    log(f"profile train {dtype}: wall {wall_ms:.2f} ms (under the "
+    log(f"profile train{tag} {dtype}: wall {wall_ms:.2f} ms (under the "
         f"profiler); device kernels {dev_ms:.2f} ms, of which conv3_tc "
-        f"(forward + dX) {tc_ms:.2f} ms and conv3_wgrad {dw_ms:.2f} ms; "
-        f"device idle {100 * (1 - dev_ms / wall_ms):.1f}% of wall")
+        f"(forward + dX) {tc_ms:.2f} ms, conv3_wgrad {dw_ms:.2f} ms, "
+        f"aten::where {where_ms:.2f} ms; device idle "
+        f"{100 * (1 - dev_ms / wall_ms):.1f}% of wall")
     for e in kernels[:12]:
         log(f"  {getattr(e, attr) / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:100]}")
     return {"wall_ms": wall_ms, "device_ms": dev_ms, "conv3_tc_ms": tc_ms,
-            "conv3_wgrad_ms": dw_ms, "idle_share": 1.0 - dev_ms / wall_ms,
+            "conv3_wgrad_ms": dw_ms, "where_ms": where_ms,
+            "idle_share": 1.0 - dev_ms / wall_ms,
             "top": [(e.key[:100], getattr(e, attr) / 1e3, e.count)
                     for e in kernels[:12]]}
 
@@ -1387,11 +1468,46 @@ def phase_train_cli(device, workdir: str):
                                  counts))}
 
 
+def phase_train_scanned(device, workdir: str, card: str, clouds):
+    """7d: Trainer.train_scanned (one upload and one packed fetch per
+    epoch) against Trainer.train (a copy and a fetch per step), bf16, on
+    epochs of SCANNED_BATCHES batches of the 8 clouds: wall per step of
+    each epoch (its checkpoint write included), in turns after a warm-up
+    epoch; the same launches per step in both."""
+    import torch
+
+    log(f"== phase 7d: train_scanned vs train, bf16, epochs of "
+        f"{SCANNED_BATCHES} batches ==")
+    tr = make_trainer("bfloat16", f"{workdir}/7d", device)
+    batches = [clouds] * SCANNED_BATCHES
+    tr.train(batches[:2])  # warm-up
+    per_step = {"train": [], "train_scanned": []}
+    for fn in ("train", "train_scanned", "train_scanned", "train"):
+        set_counts()
+        sec, _ = timed(lambda: getattr(tr, fn)(batches))
+        counts = launch_counts()
+        per_step[fn].append(sec / SCANNED_BATCHES * 1e3)
+        log(f"7d {fn}: {SCANNED_BATCHES} steps in {sec:.3f} s, "
+            f"{per_step[fn][-1]:.2f} ms per step  conv3 fwd / dX / dW "
+            f"{counts[0]} / {counts[2]} / {counts[4]}  [{card}]")
+        assert counts == tuple(SCANNED_BATCHES * c for c in TRAIN_LAUNCHES), \
+            f"7d {fn}: launches {counts}"
+    del tr
+    torch.cuda.empty_cache()
+    best = {k: min(v) for k, v in per_step.items()}
+    log(f"7d: best ms per step, train {best['train']:.2f}, train_scanned "
+        f"{best['train_scanned']:.2f} (ratio "
+        f"{best['train_scanned'] / best['train']:.3f})  [{card}]")
+    return {"ms_per_step": per_step, "best_ms_per_step": best,
+            "batches": SCANNED_BATCHES}
+
+
 def phase_train(device, workdir: str, card: str):
     clouds = train_batch()
     return {"kernels": phase_train_kernels(device, workdir, clouds),
             "steps": phase_train_steps(device, workdir, card, clouds),
-            "cli": phase_train_cli(device, workdir)}
+            "cli": phase_train_cli(device, workdir),
+            "scanned": phase_train_scanned(device, workdir, card, clouds)}
 
 
 def train_kernel_entries(train) -> list:
@@ -1973,9 +2089,312 @@ def parallel_launches(par: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: 8^3 blocks (PCGC_BLOCK_SIZE=8), in a child process
+# ---------------------------------------------------------------------------
+
+BS8_CHILD_TIMEOUT = 900  # seconds
+
+
+def frame_caps() -> dict:
+    """The vox10 frame's occupied blocks per stride (1, 2, 4, 8) and its
+    exact-fit plan at this process's block side: encoder caps, decoder
+    caps and candidate caps, with the dense slots (cap x BS^3) of each."""
+    from pcgcv2_torch.codec.coder import block_counts
+    from pcgcv2_torch.config import BlockPlan
+    from pcgcv2_torch.data.synthetic import torus_cloud
+    from pcgcv2_torch.ops import blocks as B
+
+    counts = block_counts(torus_cloud(684, density=4.0, seed=0))
+    plan = BlockPlan.for_frame(1024, counts)
+    caps = {"bs": B.BS, "blocks": list(counts), "nb": list(plan.nb),
+            "dec_nb": list(plan.dec_nb),
+            "up_caps": [plan.up_cap(s) for s in range(3)]}
+    caps["dense_slots"] = {k: [c * B.VOL for c in caps[k]]
+                           for k in ("nb", "dec_nb", "up_caps")}
+    caps["dense_slots_total"] = sum(sum(v)
+                                    for v in caps["dense_slots"].values())
+    return caps
+
+
+def time_forward(launch, kernel: str, bg, nbrs, weight, bias, cd,
+                 packed) -> dict:
+    """One forward launch's shape, timed on its own inputs: the kernel
+    through `launch` (ops.conv3.launch, KERNEL_REPS), conv3_plain, F.conv3d
+    on the live rows' halo, and the bound as phase 2 counts it."""
+    import torch.nn.functional as F
+
+    from pcgcv2_torch.ops import conv3 as K
+
+    dtype = {"torch.float32": "float32", "torch.bfloat16": "bfloat16"}[
+        str(cd)]
+    n = int(bg.count)
+    ci, co = bg.channels, weight.shape[-1]
+    ms = cuda_ms(lambda: launch(kernel, bg, nbrs, weight, bias, cd, packed),
+                 KERNEL_REPS)
+    plain_ms = cuda_ms(lambda: K.conv3_plain(bg, nbrs, weight, bias, cd), 1)
+    h = K.halo(bg.feats.to(cd), nbrs[:n]).permute(0, 4, 1, 2, 3).contiguous()
+    wl = weight.permute(4, 3, 0, 1, 2).contiguous()
+    lib_ms = cuda_ms(lambda: F.conv3d(h, wl, bias), 3)
+    del h
+    bytes_ms, ops_ms = conv3_bound(bg, nbrs, ci, co, dtype)
+    return {"nb_cap": bg.nb_cap, "live_rows": n, "ci": ci, "co": co,
+            "route": kernel, "launches": 0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms)}
+
+
+@contextlib.contextmanager
+def spy_forward_timed(rows: list, shapes: dict):
+    """spy_forward, and the first launch of each (nb_cap, ci, co) also
+    timed on its inputs by `time_forward` (its launches taken out of the
+    counts); `shapes[key]["launches"]` counts the path's launches of each
+    shape."""
+    import functools
+
+    from pcgcv2_torch.ops import conv3 as K
+
+    real = K.launch
+
+    @functools.wraps(real)
+    def launch(kernel, bg, nbrs, weight, bias, cd, packed=None):
+        out = real(kernel, bg, nbrs, weight, bias, cd, packed)
+        rows.append(check_forward(kernel, bg, nbrs, weight, bias, cd,
+                                  out.feats))
+        key = (bg.nb_cap, bg.channels, weight.shape[-1])
+        if key not in shapes:
+            counts = launch_counts()
+            shapes[key] = time_forward(real, kernel, bg, nbrs, weight, bias,
+                                       cd, packed)
+            set_counts(counts)
+        shapes[key]["launches"] += 1
+        return out
+
+    K.launch = launch
+    try:
+        yield
+    finally:
+        K.launch = real
+
+
+def bs8_frame_kernels(device, workdir: str, card: str) -> dict:
+    """9a: one vox10 encode + decode per dtype (ckpts/r4) at 8^3 blocks,
+    every conv3 forward spied on: all 64 on the 8^3 tensor-core instance,
+    each held against conv3_plain on its own inputs (FWD_TOL of max |ref|,
+    as the real-input checks of phases 7a and 8 hold them: the codec's
+    activations reach |ref| 45, where f32 sums of another order already
+    differ by more than phase 2's 1e-4 abs), and each shape timed on the
+    inputs of its first launch; per-frame sums weight each shape by its
+    launches."""
+    import torch
+
+    from pcgcv2_torch.checkpoint import load_params
+    from pcgcv2_torch.codec.coder import Coder
+    from pcgcv2_torch.data.synthetic import torus_cloud
+    from pcgcv2_torch.ops import blocks as B
+
+    log("== phase 9a: every conv3 forward of a vox10 encode + decode at "
+        "8^3 blocks vs conv3_plain, each shape timed ==")
+    params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
+    cloud = torus_cloud(684, density=4.0, seed=0)
+    result = {}
+    for dtype in ("float32", "bfloat16"):
+        B.set_compute_dtype(dtype)
+        coder = Coder(params, os.path.join(workdir, f"bs8a_{dtype}"),
+                      res=1024, device=device)
+        rows, shapes = [], {}
+        with spy_forward_timed(rows, shapes):
+            _, _, dec, launches, tc = run_frame(coder, cloud, "")
+        torch.cuda.synchronize()
+        for key, r in sorted(shapes.items()):
+            log(f"bs8 conv3 nb={key[0]:<6d} ci={key[1]:<3d} co={key[2]:<3d} "
+                f"{dtype:<8s} x{r['launches']}/frame  live {r['live_rows']}"
+                f"  {r['route']} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
+                f"  F.conv3d(halo) {r['library_ms']:.4f}  bound "
+                f"{r['bound_ms']:.4f} ({r['bytes_ms']:.4f} bytes / "
+                f"{r['ops_ms']:.4f} ops)")
+        tot = {k: sum(r["launches"] * r[k] for r in shapes.values())
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bytes_ms", "ops_ms")}
+        err = max(r["max_abs_err"] for r in rows)
+        ref = max(r["max_abs_ref"] for r in rows)
+        bad = [r for r in rows if not r["ok"]]
+        log(f"bs8 conv3 per vox10 frame, {dtype}: {launches} launches "
+            f"({tc} tensor-core, {len(rows)} checked, {len(shapes)} shapes)"
+            f"  kernel {tot['ms']:.3f} ms  plain {tot['plain_ms']:.3f}  "
+            f"F.conv3d(halo) {tot['library_ms']:.3f}  bound "
+            f"{tot['bound_ms']:.4f}  max abs err {err:.3g} (|ref| max "
+            f"{ref:.3g}), worst err/|ref| {worst_rel(rows):.3g} (tolerance "
+            f"{FWD_TOL[dtype]}) {'OK' if not bad else 'FAIL'}  [{card}]")
+        assert len(dec) == len(cloud), f"bs8 decoded {len(dec)} points"
+        assert launches == tc == len(rows) == 64, \
+            f"bs8 {launches} conv3 launches ({tc} tc, {len(rows)} seen)"
+        if bad:
+            raise AssertionError(f"bs8 conv3 disagrees with conv3_plain in "
+                                 f"{len(bad)} of 64 launches; first {bad[0]}")
+        result[dtype] = {
+            "launches": launches, "tc_launches": tc, "max_abs_err": err,
+            "max_rel_err": worst_rel(rows),
+            **tot, "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                                else "operations"),
+            "shapes": list(shapes.values()),
+        }
+        del coder
+        torch.cuda.empty_cache()
+    return result
+
+
+def worst_rel(rows: list) -> float:
+    """The worst max abs error over max |ref| of check_forward's rows."""
+    return max(r["max_abs_err"] / max(r["max_abs_ref"], 1e-30)
+               for r in rows)
+
+
+def frame_forward_errors(device, workdir: str, card: str) -> dict:
+    """The 9a check at this process's block side, untimed: every conv3
+    forward of one vox10 encode + decode per dtype against conv3_plain on
+    its own inputs; the worst abs and relative errors, for 9a's beside."""
+    import torch
+
+    from pcgcv2_torch.checkpoint import load_params
+    from pcgcv2_torch.codec.coder import Coder
+    from pcgcv2_torch.data.synthetic import torus_cloud
+    from pcgcv2_torch.ops import blocks as B
+
+    params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
+    cloud = torus_cloud(684, density=4.0, seed=0)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        B.set_compute_dtype(dtype)
+        coder = Coder(params, os.path.join(workdir, f"ferr_{dtype}"),
+                      res=1024, device=device)
+        rows = []
+        with spy_forward(rows):
+            run_frame(coder, cloud, "")
+        out[dtype] = forward_summary(rows, f"9 {dtype}, the same frame at "
+                                     f"{B.BS}^3 blocks", card)
+        out[dtype]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        out[dtype]["max_abs_ref"] = max(r["max_abs_ref"] for r in rows)
+        log(f"9 {dtype} at {B.BS}^3: max abs err "
+            f"{out[dtype]['max_abs_err']:.3g} (|ref| max "
+            f"{out[dtype]['max_abs_ref']:.3g})")
+        del coder
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_bs8_child(device, workdir: str, card: str, out: str) -> None:
+    """Phase 9 at 8^3 blocks, in this process (PCGC_BLOCK_SIZE=8): 9a-9d,
+    each phase's result written to `out` (JSON) as it ends; raises on the
+    first failure."""
+    from pcgcv2_torch.checkpoint import load_params
+    from pcgcv2_torch.ops import blocks as B
+
+    assert B.BS == 8, f"phase 9's child runs at BS {B.BS}"
+    res = {"card": card, "phase_s": {}}
+
+    def run(key, fn):
+        t = time.perf_counter()
+        res[key] = fn()
+        res["phase_s"][key] = time.perf_counter() - t
+        log(f"phase {key}: {res['phase_s'][key]:.1f} s")
+        Path(out).write_text(json.dumps(res))
+
+    run("9a", lambda: bs8_frame_kernels(device, workdir, card))
+    run("9b", lambda: phase_golden(
+        device, workdir, "phase 9b: golden triple at 8^3 blocks, float32"))
+    params = load_params(str(ROOT / "ckpts/r4/r4_final.ckpt"))
+    run("9c", lambda: {
+        "frame": phase_vox10(device, workdir, card,
+                             "phase 9c: vox10 frame at 8^3 blocks, ckpts/r4"),
+        "caps": frame_caps(),
+        "profile": phase_profile(
+            device, workdir, "phase 9c: profiler breakdown at 8^3 blocks",
+            "_bs8"),
+        "streamed": streamed_vox10(device, workdir, card, params, rounds=1)})
+    for dtype in ("bfloat16", "float32"):
+        assert res["9c"]["streamed"][f"vox10_{dtype}"]["sym_diff"] == 0, \
+            f"bs8 {dtype}: the 8-slab decode differs from the monolithic"
+    clouds = train_batch()
+    run("9d", lambda: {
+        "kernels": phase_train_kernels(device, workdir, clouds, "phase 9d"),
+        "steps": phase_train_steps(device, workdir, card, clouds,
+                                   n_steps=BS8_TRAIN_STEPS,
+                                   title="phase 9d", tag="_bs8")})
+
+
+def phase_bs8(device, workdir: str, card: str) -> dict:
+    """Phase 9: `run_bs8_child` in a child process with
+    PCGC_BLOCK_SIZE=8 (the block side is read at import); a nonzero exit
+    fails the phase.  Prints the child's results beside this process's
+    16^3 ones."""
+    log("== phase 9: 8^3 blocks (PCGC_BLOCK_SIZE=8), in a child process ==")
+    caps16 = frame_caps()
+    errs16 = frame_forward_errors(device, workdir, card)
+    out = Path(workdir) / "bs8.json"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--phases", "9",
+         "--bs8-child", str(out)],
+        env=dict(os.environ, PCGC_BLOCK_SIZE="8"), timeout=BS8_CHILD_TIMEOUT)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 9's child exited with {r.returncode}")
+    res = json.loads(out.read_text())
+    res["child_s"] = time.perf_counter() - t0
+    caps8 = res["9c"]["caps"]
+    res["caps16"] = caps16
+    res["forward_errors16"] = errs16
+    for c in (caps16, caps8):
+        log(f"9c caps at BS {c['bs']}: blocks {c['blocks']}  nb {c['nb']}  "
+            f"dec_nb {c['dec_nb']}  up caps {c['up_caps']}  dense slots nb "
+            f"{c['dense_slots']['nb']} dec {c['dense_slots']['dec_nb']} "
+            f"cand {c['dense_slots']['up_caps']}  total "
+            f"{c['dense_slots_total']}")
+    log(f"9c dense slots, 8^3 over 16^3: "
+        f"{caps8['dense_slots_total'] / caps16['dense_slots_total']:.3f}")
+    for dtype in ("float32", "bfloat16"):
+        a, f = res["9a"][dtype], res["9c"]["frame"][dtype]
+        st = res["9d"]["steps"][dtype]
+        log(f"9 {dtype} at 8^3: conv3 per vox10 frame {a['ms']:.3f} ms "
+            f"(bound {a['bound_ms']:.4f}, F.conv3d {a['library_ms']:.3f}), "
+            f"max abs err {a['max_abs_err']:.3g}, worst err/|ref| "
+            f"{a['max_rel_err']:.3g} (16^3 on the same frame: "
+            f"{errs16[dtype]['max_abs_err']:.3g}, "
+            f"{errs16[dtype]['worst_rel_err']:.3g}); "
+            f"frame enc {f['enc_s']:.4f} + dec {f['dec_s']:.4f} s, peak "
+            f"{f['peak_bytes'] / 2**30:.2f} GiB; train step median "
+            f"{st['step_ms_median']:.2f} ms, peak "
+            f"{st['peak_bytes'] / 2**30:.2f} GiB  [{card}]")
+    log(f"phase 9's child: {res['child_s']:.1f} s")
+    return res
+
+
+def bs8_kernel_entries(bs8: dict) -> dict:
+    """The kernels line's `bs8` blocks, by kernel name: conv3 from 9a (per
+    vox10 frame), conv3_dgrad and conv3_wgrad from 9d (per training
+    step), f32 with bf16 beside it."""
+    keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "max_rel_err")
+
+    def fwd(dtype):
+        return {k: bs8["9a"][dtype][k] for k in keys}
+
+    out = {"conv3": {**fwd("float32"), "dtype": "float32",
+                     "bfloat16": fwd("bfloat16"), "per": "vox10 frame",
+                     "train_step_launches": bs8["9d"]["steps"]["float32"][
+                         "launches"]["fwd"]}}
+    for e in train_kernel_entries(bs8["9d"]):
+        out[e["name"]] = {**{k: e[k] for k in keys}, "dtype": "float32",
+                          "bfloat16": {k: e["bfloat16"][k] for k in keys},
+                          "per": "training step"}
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    p.add_argument("--bs8-child", metavar="OUT", default=None,
+                   help=argparse.SUPPRESS)  # phase 9's child (internal)
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -1994,6 +2413,9 @@ def main(argv=None) -> int:
     from pcgcv2_torch.ops import conv3 as K
 
     device = torch.device("cuda", 0)
+    OUT_DIR.mkdir(exist_ok=True)
+    if not args.bs8_child:  # phase 9's child appends to the parent's log
+        (OUT_DIR / "chip_smoke.log").write_text("")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:  # one compiler per source, together
         builds = [ex.submit(K.build, True), ex.submit(native.build)]
@@ -2010,6 +2432,11 @@ def main(argv=None) -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}  "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    if args.bs8_child:
+        with tempfile.TemporaryDirectory() as workdir:
+            run_bs8_child(device, workdir, card, args.bs8_child)
+        return 0
+
     report = {"card": card, "phase_s": {}}
     with tempfile.TemporaryDirectory() as workdir:
         for n, key, run in (
@@ -2021,7 +2448,8 @@ def main(argv=None) -> int:
                                                        card)),
                 (7, "train", lambda: phase_train(device, workdir, card)),
                 (8, "parallel", lambda: phase_parallel(device, workdir,
-                                                       card))):
+                                                       card)),
+                (9, "bs8", lambda: phase_bs8(device, workdir, card))):
             if n in phases:
                 t = time.perf_counter()
                 report[key] = run()
@@ -2097,6 +2525,10 @@ def main(argv=None) -> int:
         launches = parallel_launches(report["parallel"])
         for k in kernels:
             k["parallel_launches"] = launches[k["name"]]
+    if "bs8" in report:  # the 8^3 numbers beside each kernel's 16^3 ones
+        bs8 = bs8_kernel_entries(report["bs8"])
+        for k in kernels:
+            k["bs8"] = bs8[k["name"]]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -317,7 +317,8 @@ class Coder:
                          n_slabs: int):
         """Memory-bounded decode: stages 0-1 whole, the final stage over
         x-slabs of the stride-2 blocks, each with a 1-block halo (the
-        stage's receptive field is 8 voxels).  Candidate features exist
+        stage's receptive field is 8 voxels, within one block at either
+        block side: exactly one at 8^3).  Candidate features exist
         only per slab; the whole frame holds only the candidate structure
         and its 1-channel f32 logits.  Returns (pruned candidate grid,
         dropped blocks).

@@ -2,9 +2,9 @@
 pcgcv2_tpu/config.py).
 
 `BlockPlan` sizes the block capacity of every scale of the dense-block
-backend; `ModelConfig` holds the architecture knobs; `TrainConfig` the
-training recipe.  The JAX package's `CapacityPlan` (row caps of the
-per-voxel backend) has no caller and is not copied.
+backend; `CapacityPlan` the row capacities of the per-voxel backend
+(`ops/sparse.py`, the test oracle); `ModelConfig` holds the architecture
+knobs; `TrainConfig` the training recipe.
 """
 
 from __future__ import annotations
@@ -20,6 +20,56 @@ _BS = int(os.environ.get("PCGC_BLOCK_SIZE", "16"))
 
 def _round_up(n: int, m: int) -> int:
     return int(math.ceil(n / m)) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityPlan:
+    """Static row capacities for each scale of the 3-level sparse pyramid.
+
+    input  : capacity at full resolution (the collated batch's voxel count)
+    scale1 : after the first stride-2 down-conv
+    scale2 : after the second
+    scale3 : bottleneck (stride 8)
+    train_slack : during training, pruning keeps top-k union ground truth,
+        which can approach 2x the true count.
+    """
+
+    input: int
+    scale1: int
+    scale2: int
+    scale3: int
+    train_slack: int = 2
+
+    @classmethod
+    def for_points(
+        cls,
+        n_points: int,
+        ratios: Tuple[float, float, float] = (0.65, 0.4, 0.22),
+        round_to: int = 1024,
+        slack: float = 1.15,
+    ) -> "CapacityPlan":
+        """Plan for a batch totalling ~n_points voxels.  The default ratios
+        are conservative upper bounds on the per-downsample survival rate
+        of dense surface scans (each 2x downsample of a 2-D surface in 3-D
+        keeps ~25-60% of the voxels, by local density)."""
+        c0 = _round_up(int(n_points * slack), round_to)
+        c1 = _round_up(int(n_points * ratios[0] * slack), round_to)
+        c2 = _round_up(int(n_points * ratios[1] * slack), round_to)
+        c3 = _round_up(int(n_points * ratios[2] * slack), round_to)
+        return cls(input=c0, scale1=c1, scale2=c2, scale3=c3)
+
+    @property
+    def encoder_caps(self) -> Tuple[int, int, int]:
+        return (self.scale1, self.scale2, self.scale3)
+
+    def decoder_caps(self, training: bool) -> Tuple[int, int, int]:
+        """Post-prune capacities of the three decoder stages (coarse ->
+        fine)."""
+        f = self.train_slack if training else 1
+        k2 = min(8 * self.scale3, f * self.scale2)
+        k1 = min(8 * k2, f * self.scale1)
+        k0 = min(8 * k1, f * self.input)
+        return (k2, k1, k0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,7 +33,8 @@
 // Every call of the main path, f32 and bf16, runs on the tensor cores in
 // conv3_tc.cu (ops/conv3.py::route); this kernel takes only a ci outside
 // {1, 4, 8, 16, 32, 64} and stays as the comparison kernel that
-// chip_smoke.py checks and times beside it.
+// chip_smoke.py checks and times beside it.  It is written for 16^3 blocks
+// only: under PCGC_BLOCK_SIZE=8 ops/conv3.py raises rather than launch it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,5 +1,6 @@
-// Weight gradient of the 3^3 stride-1 sparse convolution over dense 16^3
-// voxel blocks (sm_90a, CUDA cores, f32 accumulation), in bf16 and f32.
+// Weight gradient of the 3^3 stride-1 sparse convolution over dense BS^3
+// voxel blocks (BS = 16 or 8, a template parameter; sm_90a, CUDA cores,
+// f32 accumulation), in bf16 and f32.
 //
 // conv3's backward has no Pallas original: the TPU kernel
 // pcgcv2_tpu/ops/pallas_conv.py::conv3_pallas (:119) is forward only, and
@@ -10,7 +11,7 @@
 //   dW[tap, a, b] = sum over rows i < count, occupied slots v of row i of
 //                   halo_i[v + tap][a] * dy[i, v][b]          (in f32),
 //
-// halo_i the (16+2)^3 neighbourhood of block row i gathered through
+// halo_i the (BS+2)^3 neighbourhood of block row i gathered through
 // nbrs[i] (a miss reads the all-zero sentinel row), dy the output
 // gradient, read only at occupied slots.  Under bf16 compute dy comes in
 // bf16 and x, read as the grid stores it, is rounded to bf16 (then f32) as
@@ -26,9 +27,11 @@
 //   * G persistent CTAs per split (G a constant of the plan, not of the
 //     card, so the order of summation is the same on any card) walk the
 //     work items below *count (read on the device: no host sync) and keep
-//     their sums in registers.  An item is a live row, or a chunk of 8, 4,
-//     2 or 1 of its 16 output x-planes where the rows are too few to give
-//     every CTA one (`work_items`);
+//     their sums in registers.  An item is a live row, or a chunk of
+//     BS/2, ..., 2 or 1 of its BS output x-planes where the rows are too
+//     few to give every CTA one (`work_items`).  At BS = 8 the grid has
+//     about 4x the rows of an eighth of the slots, so items are whole rows
+//     more often;
 //   * every CTA computes all 27 taps of a ci tile x co tile (a split),
 //     chosen per (ci, co, x dtype, dy dtype) by `make_plan` (the wrapper's
 //     ops/conv3.py::wgrad_plan mirrors it) so that each thread holds at
@@ -36,11 +39,12 @@
 //     27 * ci_tile * co_tile <= 16384, so every instance keeps its taps
 //     together and the wide ones split their channels (64 -> 64 into 8 ci
 //     tiles of 8);
-//   * per item, a block-wide scan of the row's 4096 mask bytes lists its
-//     occupied slots in ascending order, grouped by x-plane.  Then, one
-//     output x-plane at a time, dy at that plane's slots and the three
-//     input planes its taps read (18x18 x ci-tile tiles from the neighbour
-//     rows; misses read the zero sentinel row) are gathered with cp.async
+//   * per item, a block-wide scan of the row's BS^3 mask bytes (16 per
+//     thread at BS = 16, 2 at BS = 8) lists its occupied slots in
+//     ascending order, grouped by x-plane.  Then, one output x-plane at a
+//     time, dy at that plane's slots and the three input planes its taps
+//     read ((BS+2)^2 x ci-tile tiles from the neighbour rows; misses read
+//     the zero sentinel row) are gathered with cp.async
 //     (16 bytes, or 8 or 4 for a narrower voxel; a 2-byte voxel by plain
 //     loads) into rings of plane buffers, one plane ahead of their use, as
 //     conv3_tc.cu stages the forward.  Each input plane is staged once per
@@ -54,12 +58,15 @@
 //     part[b, tap, ci, co], and a second kernel sums the partials of the
 //     CTAs that had an item in a fixed order.  No atomics: the same bits
 //     every run.
-// Measured on the H100 (PERF.md): a training step's 64 calls spend about
-// 11 ms (f32) and 13.5 ms (bf16) in these kernels, some 6x the f32 FMA
-// bound: the x reads of 27 taps from shared memory, with the syncs of each
-// plane, bound it.  Not yet: tensor cores (mma.sync with the live voxels
-// as K), overlap of one item's first planes with the previous item's
-// arithmetic.
+// ops/conv3.py::build compiles this file once per block side, with
+// PCGC_BS and the (ci, co) pairs to instantiate (PCGC_PAIRS) defined, into
+// one library; the entry point of each side is pcgc_conv3_wgrad_bs<BS>.
+// Measured on the H100 (PERF.md, 16^3 blocks): a training step's 64 calls
+// spend about 11 ms (f32) and 13.5 ms (bf16) in these kernels, some 6x the
+// f32 FMA bound: the x reads of 27 taps from shared memory, with the syncs
+// of each plane, bound it.  Not yet: tensor cores (mma.sync with the live
+// voxels as K), overlap of one item's first planes with the previous
+// item's arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,23 +74,25 @@
 
 #include <type_traits>
 
+#ifndef PCGC_BS
+#define PCGC_BS 16
+#endif
+
 namespace {
 
-constexpr int BS = 16;
-constexpr int VOL = BS * BS * BS;
-constexpr int HS = BS + 2;
-constexpr int PLANE = HS * HS;          // voxels per staged input plane
-constexpr int THREADS = 256;            // 16 mask bytes each in a row scan
+constexpr int THREADS = 256;            // BS^3 / 256 mask bytes each
 constexpr int ACC_MAX = 64;             // accumulators per thread
 constexpr int GRID_CTAS = 512;          // G x splits, about
 constexpr int SMEM_MAX = 232448 - 9216;  // dynamic smem, beside idx[]
+                                         // (4096 slots at BS = 16)
 constexpr int RED_Y = 8;                // row phases per column in pass 2
 constexpr int AHEAD = 1;                // planes staged ahead of their use
 constexpr int NBUF = 3 + AHEAD;         // ring of staged input planes
 constexpr int DYBUF = 1 + AHEAD;        // ring of staged dy planes
 
-// The plan of one (ci, co, x and dy element sizes) instance; ops/conv3.py::
-// wgrad_plan computes the same and the launch checks that they agree.
+// The plan of one (ci, co, x and dy element sizes, block side) instance;
+// ops/conv3.py::wgrad_plan computes the same and the launch checks that
+// they agree.
 struct Plan {
   int cit, cot;   // ci and co tiles of a split
   int tm, tn;     // a thread's accumulator tile
@@ -101,7 +110,8 @@ constexpr int pow2_ceil(int v) {
 constexpr int imax(int a, int b) { return a > b ? a : b; }
 constexpr int imin(int a, int b) { return a < b ? a : b; }
 
-constexpr Plan plan_for(int ci, int co, int sx, int sg, int cit, int cot) {
+constexpr Plan plan_for(int ci, int co, int sx, int sg, int bs, int cit,
+                        int cot) {
   const int e = 27 * cit * cot;
   const int f = imax(pow2_ceil((e + THREADS - 1) / THREADS),
                      imin(16, cit * cot));
@@ -113,27 +123,36 @@ constexpr Plan plan_for(int ci, int co, int sx, int sg, int cit, int cot) {
   }
   const int p = e / f, ksplit = THREADS / p;
   const int splits = (ci / cit) * (co / cot);
-  // staged y rows are padded by 16 bytes (bank conflicts of the dy taps)
-  const int ring = NBUF * HS * (HS * cit * sx + 16);
-  const int smem = imax(ring + DYBUF * THREADS * cot * sg,
+  // staged y rows are padded by 16 bytes (bank conflicts of the dy taps);
+  // a dy buffer holds the bs^2 slots of one plane
+  const int hs = bs + 2;
+  const int ring = NBUF * hs * (hs * cit * sx + 16);
+  const int smem = imax(ring + DYBUF * bs * bs * cot * sg,
                         ksplit * e * 4);
   return Plan{cit, cot, tm, tn, p, ksplit, splits,
               imax(8, GRID_CTAS / splits), smem};
 }
 
 // The first that fits: the widest co tile, then the widest ci tile.
-constexpr Plan make_plan(int ci, int co, int sx, int sg) {
+constexpr Plan make_plan(int ci, int co, int sx, int sg, int bs) {
   for (int cot = co; cot >= 1; cot /= 2)
     for (int cit = ci; cit >= 1; cit /= 2) {
-      const Plan p = plan_for(ci, co, sx, sg, cit, cot);
+      const Plan p = plan_for(ci, co, sx, sg, bs, cit, cot);
       if (p.tm * p.tn <= ACC_MAX && p.smem <= SMEM_MAX) return p;
     }
   return Plan{};
 }
 
-template <typename TX, typename TG, int CI, int CO>
+template <typename TX, typename TG, int CI, int CO, int BS_>
 struct Cfg {
-  static constexpr Plan PL = make_plan(CI, CO, sizeof(TX), sizeof(TG));
+  static_assert(BS_ == 16 || BS_ == 8, "block side");
+  static constexpr int BS = BS_;
+  static constexpr int VOL = BS * BS * BS;
+  static constexpr int HS = BS + 2;
+  static constexpr int PLANE = HS * HS;  // voxels per staged input plane
+  static constexpr int MB = VOL / THREADS;  // mask bytes per thread: 16, 2
+  static constexpr int TPP = BS * BS / MB;  // scan threads per x-plane
+  static constexpr Plan PL = make_plan(CI, CO, sizeof(TX), sizeof(TG), BS);
   static constexpr int CIT = PL.cit, COT = PL.cot;
   static constexpr int TM = PL.tm, TN = PL.tn, P = PL.p, KSPLIT = PL.ksplit;
   static constexpr int COS = CO / COT;                 // co tiles
@@ -142,7 +161,7 @@ struct Cfg {
   static constexpr int RSY = HS * CIT + 16 / sizeof(TX);  // staged y row
   static constexpr int SLOT = HS * RSY;                // staged plane
   static constexpr int RING = NBUF * SLOT;             // staged x elements
-  static constexpr int GBUF = THREADS * COT;           // dy per buffer
+  static constexpr int GBUF = BS * BS * COT;           // dy per buffer
   // f32 x under bf16 compute (bf16 dy) is rounded to bf16 as it lands
   static constexpr bool ROUND = std::is_same<TX, float>::value &&
                                 std::is_same<TG, __nv_bfloat16>::value;
@@ -151,20 +170,22 @@ struct Cfg {
 };
 
 // The work items of a grid of g CTAs over n_rows live rows: (row, chunk of
-// xp output x-planes), xp the widest of 16, 8, 4, 2, 1 that still gives
+// xp output x-planes), xp the widest of BS, BS/2, ..., 1 that still gives
 // every CTA an item.  A function of count and G alone, so the order of
 // summation is too.
+template <int BS>
 __device__ __forceinline__ int work_items(int n_rows, int g, int& xp) {
   xp = BS;
   while (xp > 1 && n_rows * (BS / xp) < g) xp /= 2;
   return n_rows * (BS / xp);
 }
 
-// halo coordinate h in [0, 18) -> neighbour offset (0, 1, 2) and the cell
-// it reads inside that neighbour block
+// halo coordinate h in [0, BS + 2) -> neighbour offset (0, 1, 2) and the
+// cell it reads inside that neighbour block
+template <int BS>
 __device__ __forceinline__ void halo_src(int h, int& nbr, int& cell) {
-  nbr = h == 0 ? 0 : (h == HS - 1 ? 2 : 1);
-  cell = h == 0 ? BS - 1 : (h == HS - 1 ? 0 : h - 1);
+  nbr = h == 0 ? 0 : (h == BS + 1 ? 2 : 1);
+  cell = h == 0 ? BS - 1 : (h == BS + 1 ? 0 : h - 1);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -219,15 +240,16 @@ __device__ __forceinline__ void load_f(const T* p, float (&v)[N]) {
   for (int j = 0; j < N; ++j) v[j] = to_f(tmp[j]);
 }
 
-// gather halo plane p (halo x coordinate, 0..17) of block row `rows`,
-// channels c0 .. c0 + CIT - 1, into `slot`: 18 x 18 voxels from the
+// gather halo plane p (halo x coordinate, 0..BS+1) of block row `rows`,
+// channels c0 .. c0 + CIT - 1, into `slot`: (BS+2)^2 voxels from the
 // neighbour rows of that plane, y rows RSY elements apart
-template <typename TX, int CI, int CIT, int RSY>
+template <typename TX, int CI, int CIT, int RSY, int BS>
 __device__ __forceinline__ void stage(const TX* __restrict__ x,
                                       const int* rows, TX* slot, int p,
                                       int c0, int t) {
+  constexpr int HS = BS + 2, PLANE = HS * HS, VOL = BS * BS * BS;
   int nx, sx;
-  halo_src(p, nx, sx);
+  halo_src<BS>(p, nx, sx);
   constexpr int VB = CIT * sizeof(TX);       // bytes per staged voxel
   constexpr int PIECE = VB < 16 ? VB : 16;   // bytes per copy
   constexpr int CH = VB / PIECE;             // copies per voxel
@@ -235,8 +257,8 @@ __device__ __forceinline__ void stage(const TX* __restrict__ x,
   for (int k = t; k < PLANE * CH; k += THREADS) {
     const int r = k / CH, c = k % CH;
     int ny, sy, nz, sz;
-    halo_src(r / HS, ny, sy);
-    halo_src(r % HS, nz, sz);
+    halo_src<BS>(r / HS, ny, sy);
+    halo_src<BS>(r % HS, nz, sz);
     const size_t row = rows[nx * 9 + ny * 3 + nz];
     const TX* src =
         x + (row * VOL + (sx * BS + sy) * BS + sz) * CI + c0 + c * PE;
@@ -250,8 +272,9 @@ __device__ __forceinline__ void stage(const TX* __restrict__ x,
 
 // round to bf16 (then f32) the part of a staged f32 plane that `stage`
 // made thread t copy
-template <int CIT, int RSY>
+template <int CIT, int RSY, int BS>
 __device__ __forceinline__ void round_bf16(float* slot, int t) {
+  constexpr int HS = BS + 2, PLANE = HS * HS;
   constexpr int PIECE = CIT * 4 < 16 ? CIT * 4 : 16;
   constexpr int CH = CIT * 4 / PIECE;
   constexpr int PE = PIECE / 4;
@@ -292,14 +315,15 @@ __device__ __forceinline__ void stage_dy(const TG* __restrict__ dy,
   }
 }
 
-template <typename TX, typename TG, int CI, int CO>
+template <typename TX, typename TG, int CI, int CO, int BS>
 __global__ void __launch_bounds__(THREADS)
     wgrad_partial_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
                          const int* __restrict__ nbrs,
                          const uint8_t* __restrict__ mask,
                          const int* __restrict__ count,
                          float* __restrict__ part) {
-  using C = Cfg<TX, TG, CI, CO>;
+  using C = Cfg<TX, TG, CI, CO, BS>;
+  constexpr int VOL = C::VOL, MB = C::MB;
   extern __shared__ __align__(16) unsigned char smem[];
   TX* ring = reinterpret_cast<TX*>(smem);
   TG* gbuf = reinterpret_cast<TG*>(smem + C::RING * sizeof(TX));
@@ -327,19 +351,26 @@ __global__ void __launch_bounds__(THREADS)
     for (int b = 0; b < C::TN; ++b) acc[a][b] = 0.f;
 
   int xp;
-  const int items = work_items(*count, gridDim.x, xp), per_row = BS / xp;
+  const int items = work_items<BS>(*count, gridDim.x, xp),
+            per_row = BS / xp;
   if (blockIdx.x >= items) return;  // its partial is never read
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int i = it / per_row, x0 = it % per_row * xp;
     const size_t row0 = (size_t)i * VOL;
     if (t < 27) rows[t] = nbrs[(size_t)i * 27 + t];
-    // the row's occupied slots, ascending: thread t scans slots 16t ..
-    // 16t+15 (plane t / 16), a block-wide exclusive scan places them
-    const uint4 m4 = reinterpret_cast<const uint4*>(mask + row0)[t];
-    const uint32_t mw[4] = {m4.x, m4.y, m4.z, m4.w};
+    // the row's occupied slots, ascending: thread t scans slots MB t ..
+    // MB t + MB - 1 (plane t / TPP), a block-wide exclusive scan places them
+    uint32_t mw[4] = {0u, 0u, 0u, 0u};
+    if constexpr (MB == 16) {
+      const uint4 m4 = reinterpret_cast<const uint4*>(mask + row0)[t];
+      mw[0] = m4.x, mw[1] = m4.y, mw[2] = m4.z, mw[3] = m4.w;
+    } else {
+      static_assert(MB == 2, "mask bytes per thread");
+      mw[0] = reinterpret_cast<const uint16_t*>(mask + row0)[t];
+    }
     int c = 0;
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
+    for (int k = 0; k < MB; ++k)
       c += ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) != 0;
     int incl = c;
 #pragma unroll
@@ -352,11 +383,11 @@ __global__ void __launch_bounds__(THREADS)
     int pos = incl - c;
 #pragma unroll
     for (int w = 0; w < THREADS / 32; ++w) pos += w < warp ? wsum[w] : 0;
-    if ((t & 15) == 0) pstart[t >> 4] = pos;
+    if (t % C::TPP == 0) pstart[t / C::TPP] = pos;
     if (t == THREADS - 1) pstart[BS] = pos + c;
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
-      if ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) idx[pos++] = 16 * t + k;
+    for (int k = 0; k < MB; ++k)
+      if ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) idx[pos++] = MB * t + k;
     __syncthreads();
     uint32_t occ = 0;  // this item's occupied output planes
     for (int p = x0; p < x0 + xp; ++p)
@@ -383,7 +414,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll 1
     for (int q = x0; q < x0 + 2 + AHEAD; ++q) {
       if (q < qend && needed(q))
-        stage<TX, CI, C::CIT, C::RSY>(x, rows, slot(q), q, ci0, t);
+        stage<TX, CI, C::CIT, C::RSY, BS>(x, rows, slot(q), q, ci0, t);
       if (q >= x0 + 2 && q - 2 < x0 + xp) dy_of(q - 2);
       cp_async_commit();
     }
@@ -394,14 +425,14 @@ __global__ void __launch_bounds__(THREADS)
       // read
       const int qn = xo + 2 + AHEAD;
       if (qn < qend && needed(qn))
-        stage<TX, CI, C::CIT, C::RSY>(x, rows, slot(qn), qn, ci0, t);
+        stage<TX, CI, C::CIT, C::RSY, BS>(x, rows, slot(qn), qn, ci0, t);
       if (xo + AHEAD < x0 + xp) dy_of(xo + AHEAD);
       cp_async_commit();
       if (!((occ >> xo) & 1u)) continue;
       cp_async_wait<AHEAD>();  // planes xo .. xo + 2, dy of xo (own part)
       if constexpr (C::ROUND) {  // each thread rounds the copies it made
         for (rnd = max(rnd, xo); rnd <= xo + 2; ++rnd)
-          round_bf16<C::CIT, C::RSY>(slot(rnd), t);
+          round_bf16<C::CIT, C::RSY, BS>(slot(rnd), t);
       }
       __syncthreads();  // ... everyone's
 
@@ -414,7 +445,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int k = s; k < n; k += C::KSPLIT) {
           const int v = vs[k] & (BS * BS - 1);  // (y, z) in the plane
           float a[C::TM], b[C::TN];
-          load_f<C::TM>(pl + (v >> 4) * C::RSY + (v & 15) * C::CIT, a);
+          load_f<C::TM>(pl + (v / BS) * C::RSY + (v % BS) * C::CIT, a);
           load_f<C::TN>(g + k * C::COT, b);
 #pragma unroll
           for (int p = 0; p < C::TM; ++p)
@@ -449,6 +480,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // out[e] = sum over the partials r < min(g, items) of part[r, e], e < n_e
+template <int BS>
 __global__ void __launch_bounds__(32 * RED_Y)
     wgrad_reduce_kernel(const float* __restrict__ part,
                         const int* __restrict__ count, int g,
@@ -456,7 +488,7 @@ __global__ void __launch_bounds__(32 * RED_Y)
   __shared__ float red[RED_Y][33];
   const int e = blockIdx.x * 32 + threadIdx.x;
   int xp;
-  g = min(g, work_items(*count, g, xp));
+  g = min(g, work_items<BS>(*count, g, xp));
   float s = 0.f;
   if (e < n_e) {
 #pragma unroll 4
@@ -472,14 +504,14 @@ __global__ void __launch_bounds__(32 * RED_Y)
   }
 }
 
-template <typename TX, typename TG, int CI, int CO>
+template <typename TX, typename TG, int CI, int CO, int BS>
 int launch(const void* x, const void* dy, const void* nbrs, const void* mask,
            const void* count, void* part, void* out, const int* plan,
            cudaStream_t stream) {
-  using C = Cfg<TX, TG, CI, CO>;
+  using C = Cfg<TX, TG, CI, CO, BS>;
   if (plan[0] != C::CIT || plan[1] != C::COT || plan[2] != C::PL.g)
     return -2;  // the wrapper's plan is not this instance's
-  auto kern = wgrad_partial_kernel<TX, TG, CI, CO>;
+  auto kern = wgrad_partial_kernel<TX, TG, CI, CO, BS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::PL.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -490,72 +522,64 @@ int launch(const void* x, const void* dy, const void* nbrs, const void* mask,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_e = 27 * CI * CO;
-  wgrad_reduce_kernel<<<(n_e + 31) / 32, dim3(32, RED_Y), 0, stream>>>(
+  wgrad_reduce_kernel<BS><<<(n_e + 31) / 32, dim3(32, RED_Y), 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(count),
       C::PL.g, static_cast<float*>(out), n_e);
   return static_cast<int>(cudaGetLastError());
 }
 
-#define PCGC_ARGS x, dy, nbrs, mask, count, part, out, plan, s
-
-template <typename TX, typename TG, int CI>
-int by_co(const void* x, const void* dy, const void* nbrs,
-          const void* mask, const void* count, void* part, void* out,
-          const int* plan, cudaStream_t s, int co) {
-  switch (co) {
-    case 1: return launch<TX, TG, CI, 1>(PCGC_ARGS);
-    case 4: return launch<TX, TG, CI, 4>(PCGC_ARGS);
-    case 8: return launch<TX, TG, CI, 8>(PCGC_ARGS);
-    case 16: return launch<TX, TG, CI, 16>(PCGC_ARGS);
-    case 32: return launch<TX, TG, CI, 32>(PCGC_ARGS);
-    case 64: return launch<TX, TG, CI, 64>(PCGC_ARGS);
-    default: return -1;
-  }
-}
+// The (ci, co) pairs to instantiate, X(ci, co) each: by default all of
+// {1, 4, 8, 16, 32, 64}^2; ops/conv3.py::build defines the list of each
+// block side.
+#ifndef PCGC_PAIRS
+#define PCGC_CO_ALL(X, ci) \
+  X(ci, 1) X(ci, 4) X(ci, 8) X(ci, 16) X(ci, 32) X(ci, 64)
+#define PCGC_PAIRS(X)                                                    \
+  PCGC_CO_ALL(X, 1) PCGC_CO_ALL(X, 4) PCGC_CO_ALL(X, 8) PCGC_CO_ALL(X, 16) \
+      PCGC_CO_ALL(X, 32) PCGC_CO_ALL(X, 64)
+#endif
 
 template <typename TX, typename TG>
-int by_ci(const void* x, const void* dy, const void* nbrs,
-          const void* mask, const void* count, void* part, void* out,
-          const int* plan, cudaStream_t s, int ci, int co) {
-  switch (ci) {
-    case 1: return by_co<TX, TG, 1>(PCGC_ARGS, co);
-    case 4: return by_co<TX, TG, 4>(PCGC_ARGS, co);
-    case 8: return by_co<TX, TG, 8>(PCGC_ARGS, co);
-    case 16: return by_co<TX, TG, 16>(PCGC_ARGS, co);
-    case 32: return by_co<TX, TG, 32>(PCGC_ARGS, co);
-    case 64: return by_co<TX, TG, 64>(PCGC_ARGS, co);
-    default: return -1;
-  }
+int by_pair(const void* x, const void* dy, const void* nbrs,
+            const void* mask, const void* count, void* part, void* out,
+            const int* plan, cudaStream_t s, int ci, int co) {
+#define PCGC_CASE(ci_, co_)                                                \
+  if (ci == ci_ && co == co_)                                              \
+    return launch<TX, TG, ci_, co_, PCGC_BS>(x, dy, nbrs, mask, count, part, \
+                                             out, plan, s);
+  PCGC_PAIRS(PCGC_CASE)
+#undef PCGC_CASE
+  return -1;
 }
-
-#undef PCGC_ARGS
 
 }  // namespace
 
-// x [nb, 4096, ci] in f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), as the grid
-// stores it; dy [nb, 4096, co] in the compute dtype, f32 (dy_bf16 = 0) or
-// bf16 (dy_bf16 = 1); nbrs int32 [nb, 27]; mask bool [nb, 4096] (16-byte
-// aligned); count int32 [1] on the device; plan int32[3] on the host: (ci
-// tile, co tile, G) of ops/conv3.py::wgrad_plan; part f32
-// [G, 27, ci, co] scratch; out f32 [27, ci, co].  Returns 0, a cudaError_t
-// of a launch, -1 for an instance it does not have, or -2 where `plan` is
-// not the instance's.
-extern "C" int pcgc_conv3_wgrad(const void* x, const void* dy,
-                                const void* nbrs, const void* mask,
-                                const void* count, void* part, void* out,
-                                const int* plan, int ci, int co, int x_bf16,
-                                int dy_bf16, void* stream) {
+#define PCGC_CAT2(a, b) a##b
+#define PCGC_CAT(a, b) PCGC_CAT2(a, b)
+
+// pcgc_conv3_wgrad_bs16 / pcgc_conv3_wgrad_bs8: x [nb, BS^3, ci] in f32
+// (x_bf16 = 0) or bf16 (x_bf16 = 1), as the grid stores it; dy [nb, BS^3,
+// co] in the compute dtype, f32 (dy_bf16 = 0) or bf16 (dy_bf16 = 1); nbrs
+// int32 [nb, 27]; mask bool [nb, BS^3] (16-byte aligned); count int32 [1]
+// on the device; plan int32[3] on the host: (ci tile, co tile, G) of
+// ops/conv3.py::wgrad_plan; part f32 [G, 27, ci, co] scratch; out f32
+// [27, ci, co].  Returns 0, a cudaError_t of a launch, -1 for an instance
+// it does not have, or -2 where `plan` is not the instance's.
+extern "C" int PCGC_CAT(pcgc_conv3_wgrad_bs, PCGC_BS)(
+    const void* x, const void* dy, const void* nbrs, const void* mask,
+    const void* count, void* part, void* out, const int* plan, int ci,
+    int co, int x_bf16, int dy_bf16, void* stream) {
   using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16 && dy_bf16)
-    return by_ci<bf16, bf16>(x, dy, nbrs, mask, count, part, out, plan, s,
-                             ci, co);
+    return by_pair<bf16, bf16>(x, dy, nbrs, mask, count, part, out, plan, s,
+                               ci, co);
   if (x_bf16)
-    return by_ci<bf16, float>(x, dy, nbrs, mask, count, part, out, plan, s,
-                              ci, co);
+    return by_pair<bf16, float>(x, dy, nbrs, mask, count, part, out, plan, s,
+                                ci, co);
   if (dy_bf16)
-    return by_ci<float, bf16>(x, dy, nbrs, mask, count, part, out, plan, s,
-                              ci, co);
-  return by_ci<float, float>(x, dy, nbrs, mask, count, part, out, plan, s, ci,
-                             co);
+    return by_pair<float, bf16>(x, dy, nbrs, mask, count, part, out, plan, s,
+                                ci, co);
+  return by_pair<float, float>(x, dy, nbrs, mask, count, part, out, plan, s,
+                               ci, co);
 }

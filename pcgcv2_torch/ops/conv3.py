@@ -5,11 +5,16 @@ plain PyTorch version.
 (:119), the fused halo-assembly + 3^3 conv, and the XLA path it mirrors,
 pcgcv2_tpu/ops/blocks.py::conv3 (:656).  On a CUDA tensor it launches one
 of two kernels (built with nvcc for sm_90a at first use, loaded with
-ctypes) or raises; on a CPU tensor it runs `conv3_plain`.  `route` picks
-the kernel by shape:
+ctypes) or raises; on a CPU tensor it runs `conv3_plain`.  Both block
+sides of the JAX package (PCGC_BLOCK_SIZE 16, the default, and 8) have
+their own instances of conv3_tc.cu and conv3_wgrad.cu, all in one library
+(`build`); the process's block side (blocks.BS) picks them.  `route`
+picks the kernel by shape:
 
-* "tc", csrc/conv3_tc.cu: ci and co in {1, 4, 8, 16, 32, 64}, which is
-  every call of the main path, in bf16 and in f32.  An implicit GEMM on
+* "tc", csrc/conv3_tc.cu: at BS = 16 ci and co in {1, 4, 8, 16, 32, 64};
+  at BS = 8 the (ci, co) pairs of the full-width model and of its input
+  gradients (`TC_PAIRS`).  That is every call of the main path, in bf16
+  and in f32.  An implicit GEMM on
   the tensor cores (mma.sync: bf16 m16n8k16 / m16n8k8; f32 as three
   m16n8k8 TF32 products of split operands, 3xTF32, which keeps f32
   accuracy): each CTA stages the input planes of one block row with
@@ -19,7 +24,8 @@ the kernel by shape:
   arithmetic.
 * "simt", csrc/conv3.cu: any other ci (co must still be one of the six).
   f32 FMA on the CUDA cores, one CTA per (block row, output x-plane).  It
-  is no longer on the main path and stays as the comparison kernel.
+  is no longer on the main path and stays as the comparison kernel, for
+  16^3 blocks only: at BS = 8 a call it would take raises.
 
 What bounds it on the H100: at the checkpoint's channel pairs the dense
 block conv does 6-860 FLOP per byte moved, so it is bound by arithmetic
@@ -43,7 +49,8 @@ live slots (occupied slots of rows < count, where the forward wrote):
   it writes only live slots: every producer of a conv3 input in the model
   masks its output (`BlockGrid.with_feats`), so the gradient at the other
   slots would be discarded upstream anyway;
-* dW is csrc/conv3_wgrad.cu (`conv3_wgrad`), on the CUDA cores: G
+* dW is csrc/conv3_wgrad.cu (`conv3_wgrad`; at BS = 8 the model's forward
+  pairs, `WGRAD_PAIRS`), on the CUDA cores: G
   persistent CTAs per channel split (`wgrad_plan`) walk the live rows,
   read each once for all 27 taps over cp.async-staged input planes, and
   sum in a fixed order; x is read as the grid stores it.  Its plain
@@ -75,6 +82,23 @@ _BUILD_DIR = _CSRC / "build"
 _CHANNELS = (1, 4, 8, 16, 32, 64)  # co of the kernels; ci of "tc", wgrad
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
+BLOCK_SIDES = (16, 8)  # the block sides the kernels are built for
+
+# (ci, co) of every conv3 of the full-width model (ModelConfig()): encoder
+# scales 1->16, 32->32, 64->64, its final 32->8; decoder stages 64->64,
+# 32->32, 16->16; the IRN blocks of widths 64, 32, 16 (ch -> ch/4,
+# ch/4 -> ch/2, ch/4 -> ch/4); the occupancy heads 64, 32, 16 -> 1.
+MODEL_PAIRS = ((1, 16), (32, 32), (64, 64), (32, 8), (16, 16), (64, 16),
+               (16, 32), (8, 16), (8, 8), (16, 4), (4, 8), (4, 4), (64, 1),
+               (32, 1), (16, 1))
+_ALL_PAIRS = tuple((ci, co) for ci in _CHANNELS for co in _CHANNELS)
+# The instances each block side is built with.  16^3: every pair.  8^3:
+# the model's pairs, and for conv3_tc.cu also their flips (the input
+# gradient is a forward conv co -> ci), so that the second block side does
+# not double the build.
+TC_PAIRS = {16: _ALL_PAIRS, 8: tuple(dict.fromkeys(
+    MODEL_PAIRS + tuple((co, ci) for ci, co in MODEL_PAIRS)))}
+WGRAD_PAIRS = {16: _ALL_PAIRS, 8: MODEL_PAIRS}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -88,37 +112,65 @@ def _nvcc() -> str:
     return cand if os.path.exists(cand) else "nvcc"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/conv3.cu, conv3_tc.cu and conv3_wgrad.cu (one nvcc per
-    source, run together) and link them into one plain C-interface shared
-    library.
+def units() -> list:
+    """(name, text) of the library's translation units: conv3.cu as it is
+    (16^3 only), and conv3_tc.cu and conv3_wgrad.cu once per block side,
+    with PCGC_BS and the (ci, co) pairs to instantiate (PCGC_PAIRS)
+    defined.  The same for every process, whatever its block side."""
+    out = [("conv3", '#include "conv3.cu"\n')]
+    for bs in BLOCK_SIDES:
+        for src, pairs in (("conv3_tc", TC_PAIRS[bs]),
+                           ("conv3_wgrad", WGRAD_PAIRS[bs])):
+            xs = " ".join(f"X({ci}, {co})" for ci, co in pairs)
+            out.append((f"{src}_bs{bs}",
+                        f"#define PCGC_BS {bs}\n#define PCGC_PAIRS(X) {xs}\n"
+                        f'#include "{src}.cu"\n'))
+    return out
 
-    The library name carries a hash of the sources and the flags, so a
-    changed source is rebuilt and parallel builds never clobber each
-    other's half-written files (each writes private temp files, then
-    renames).  `verbose` prints nvcc's `-Xptxas -v` report."""
+
+def build(verbose: bool = False) -> Path:
+    """Compile the translation units of `units` (one nvcc each, all run
+    together: conv3_tc.cu and conv3_wgrad.cu once per block side) and link
+    them into one plain C-interface shared library.
+
+    The library name carries a hash of the sources, the units and the
+    flags, so a changed source is rebuilt and parallel builds never
+    clobber each other's half-written files (each writes private temp
+    files, then renames).  Neither depends on PCGC_BLOCK_SIZE: a process
+    of either block side loads the library the other built.  `verbose`
+    prints nvcc's `-Xptxas -v` report."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in _SRCS:
         h.update(src.read_bytes())
+    todo = units()
+    for _, text in todo:
+        h.update(text.encode())
     tag = h.hexdigest()[:16]
     lib = _BUILD_DIR / f"libpcgc_conv3_{tag}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pid = os.getpid()
-    objs = [_BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in _SRCS]
+    srcs, objs = [], []
+    for name, text in todo:
+        src = _BUILD_DIR / f"{name}_{tag}.{pid}.cu"
+        src.write_text(text)
+        srcs.append(src)
+        objs.append(src.with_suffix(".o"))
     ptxas = ["-Xptxas", "-v"] if verbose else []
-    procs = [subprocess.Popen([_nvcc(), *ptxas, *_NVCC_FLAGS, "-c", "-o",
-                               str(obj), str(src)],
+    procs = [subprocess.Popen([_nvcc(), *ptxas, *_NVCC_FLAGS, "-I",
+                               str(_CSRC), "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
-             for src, obj in zip(_SRCS, objs)]
+             for src, obj in zip(srcs, objs)]
     errs = [p.communicate()[1] for p in procs]  # waits for all
-    for src, p, err in zip(_SRCS, procs, errs):
+    for src in srcs:
+        src.unlink(missing_ok=True)
+    for (name, _), p, err in zip(todo, procs, errs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {src}:\n{err}")
+            raise RuntimeError(f"nvcc failed building {name}:\n{err}")
         if verbose:
-            print(f"nvcc {src.name}:\n{err}", flush=True)
+            print(f"nvcc {name}:\n{err}", flush=True)
     tmp = lib.with_suffix(f".{pid}.tmp")
     r = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
                         *map(str, objs)], capture_output=True, text=True)
@@ -137,11 +189,15 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp = ctypes.c_void_p
             ci = ctypes.c_int
-            for fn in (lib.pcgc_conv3, lib.pcgc_conv3_tc):
+            lib.pcgc_conv3.restype = ci
+            lib.pcgc_conv3.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+            for bs in BLOCK_SIDES:
+                fn = getattr(lib, f"pcgc_conv3_tc_bs{bs}")
                 fn.restype = ci
-                fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-            lib.pcgc_conv3_wgrad.restype = ci
-            lib.pcgc_conv3_wgrad.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+                fn.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+                fn = getattr(lib, f"pcgc_conv3_wgrad_bs{bs}")
+                fn.restype = ci
+                fn.argtypes = [vp] * 8 + [ci] * 4 + [vp]
             _lib = lib
         return _lib
 
@@ -228,12 +284,46 @@ def conv3_plain(
 # ---------------------------------------------------------------------------
 
 
-def route(ci: int, co: int, dtype) -> str:
+def route(ci: int, co: int, dtype, bs: Optional[int] = None) -> str:
     """The kernel a CUDA call takes, by shape: "tc" (csrc/conv3_tc.cu,
-    tensor cores) for ci and co in {1, 4, 8, 16, 32, 64}, in bf16 and f32;
-    "simt" (csrc/conv3.cu) for any other ci."""
+    tensor cores) for the pairs block side `bs` (default blocks.BS) has
+    instances of (`TC_PAIRS`: at 16 ci and co in {1, 4, 8, 16, 32, 64}), in
+    bf16 and f32; "simt" (csrc/conv3.cu, 16^3 only) for any other."""
     del dtype  # both dtypes have the same instances
-    return "tc" if ci in _CHANNELS and co in _CHANNELS else "simt"
+    return "tc" if (ci, co) in TC_PAIRS.get(bs or B.BS, ()) else "simt"
+
+
+class TcPlan(NamedTuple):
+    """How csrc/conv3_tc.cu tiles one (ci, co, dtype, block side) instance
+    (its `Cfg` computes the same; the launch checks xp, rows and smem)."""
+
+    xp: int       # output x-planes per CTA
+    rows: int     # output y rows per CTA
+    threads: int  # one per (y, z) voxel of those rows
+    smem: int     # dynamic shared memory: a ring of 4 staged planes
+    grid: tuple   # CTAs per block row: (x slabs, y-halves)
+
+
+TC_SMEM_MAX = 232448 - 256  # dynamic shared memory a CTA may use
+
+
+def tc_plan(ci: int, co: int, dtype, bs: Optional[int] = None) -> TcPlan:
+    """conv3_tc.cu's tiling: staged voxels of max(ci, 8) channels, padded
+    by 16 bytes where a voxel is an even number of 16-byte groups; a ring
+    of 4 planes of (rows + 2) x (bs + 2) voxels; 16^3 blocks in slabs of 4
+    x-planes, split into y-halves where a full-plane ring does not fit,
+    8^3 blocks whole."""
+    del co  # the staging is the input's
+    bs = bs or B.BS
+    sz = torch.empty((), dtype=dtype).element_size()
+    cip = max(ci, 8)
+    rs = cip + (16 // sz if (cip * sz // 16) % 2 == 0 else 0)
+    hs = bs + 2
+    ys = 2 if 4 * hs * hs * rs * sz > TC_SMEM_MAX else 1
+    rows = bs // ys
+    xp = 4 if bs == 16 else 8
+    return TcPlan(xp, rows, rows * bs, 4 * (rows + 2) * hs * rs * sz,
+                  (bs // xp, ys))
 
 
 def _tc_dims(ci: int, co: int, dtype) -> tuple:
@@ -302,9 +392,10 @@ def unpack_weight(packed: torch.Tensor, ci: int, co: int) -> torch.Tensor:
 def _check(bg: B.BlockGrid, nbrs, weight, bias, cd, packed, kernel) -> None:
     nb, ci = bg.nb_cap, bg.channels
     dev = bg.feats.device
-    if B.BS != 16:
+    if B.BS not in BLOCK_SIDES:
         raise NotImplementedError(
-            f"the conv3 kernel is written for 16^3 blocks, not BS={B.BS}")
+            f"the conv3 kernels are written for 16^3 and 8^3 blocks, not "
+            f"BS={B.BS}")
     if cd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv3 kernel takes float32 or bfloat16, not {cd}")
     if tuple(weight.shape[:4]) != (3, 3, 3, ci):
@@ -328,6 +419,10 @@ def _check(bg: B.BlockGrid, nbrs, weight, bias, cd, packed, kernel) -> None:
                              f"pack_weight's {shape}")
     elif kernel != "simt":
         raise ValueError(f"no conv3 kernel {kernel!r}")
+    elif B.BS != 16:
+        raise NotImplementedError(
+            f"conv3.cu is written for 16^3 blocks, and conv3_tc.cu has no "
+            f"BS={B.BS} instance for ci={ci} co={co}")
     if bias is not None and tuple(bias.shape) != (co,):
         raise ValueError(f"bias {tuple(bias.shape)} does not match co={co}")
     for name, t in (("weight", weight), ("bias", bias), ("packed", packed)):
@@ -372,14 +467,19 @@ def _run(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
     mask = _aligned(bg.mask, 4)
     out = torch.empty((nb, B.VOL, co), dtype=cd, device=dev)
     lib = _load()
-    fn = lib.pcgc_conv3_tc if kernel == "tc" else lib.pcgc_conv3
-    rc = fn(
-        x.data_ptr(), nbrs.data_ptr(), mask.data_ptr(), bg.count.data_ptr(),
-        (packed if kernel == "tc" else weight).data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), nb, ci, co, int(cd == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (x.data_ptr(), nbrs.data_ptr(), mask.data_ptr(),
+            bg.count.data_ptr(),
+            (packed if kernel == "tc" else weight).data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr())
+    tail = (nb, ci, co, int(cd == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if kernel == "tc":
+        p = tc_plan(ci, co, cd)
+        sel = (ctypes.c_int * 3)(p.xp, p.rows, p.smem)
+        rc = getattr(lib, f"pcgc_conv3_tc_bs{B.BS}")(
+            *args, ctypes.addressof(sel), *tail)
+    else:
+        rc = lib.pcgc_conv3(*args, *tail)
     if rc != 0:
         raise RuntimeError(f"conv3 {kernel} kernel launch failed (code {rc}) "
                            f"at nb={nb} ci={ci} co={co} dtype={cd}")
@@ -528,13 +628,14 @@ class WgradPlan(NamedTuple):
 
 WGRAD_THREADS = 256
 WGRAD_ACC_MAX = 64  # accumulators per thread
-# dynamic shared memory a CTA may use beside its 8 KB list of slots
+# dynamic shared memory a CTA may use beside its list of slots (8 KB at
+# BS = 16)
 WGRAD_SMEM_MAX = 232448 - 9216
 _WG_CTAS = 512  # G x splits, about
 _WG_AHEAD = 1   # planes staged ahead of their use
 
 
-def _wgrad_plan_for(ci, co, sx, sg, cit, cot) -> WgradPlan:
+def _wgrad_plan_for(ci, co, sx, sg, bs, cit, cot) -> WgradPlan:
     e = 27 * cit * cot
     f = max(1 << (-(-e // WGRAD_THREADS) - 1).bit_length(),
             min(16, cit * cot))
@@ -546,27 +647,32 @@ def _wgrad_plan_for(ci, co, sx, sg, cit, cot) -> WgradPlan:
     tiles = e // f
     ksplit = WGRAD_THREADS // tiles
     splits = (ci // cit) * (co // cot)
-    # staged y rows are padded by 16 bytes against bank conflicts
-    ring = (3 + _WG_AHEAD) * HS * (HS * cit * sx + 16)
-    smem = max(ring + (1 + _WG_AHEAD) * WGRAD_THREADS * cot * sg,
+    # staged y rows are padded by 16 bytes against bank conflicts; a dy
+    # buffer holds the bs^2 slots of one plane
+    hs = bs + 2
+    ring = (3 + _WG_AHEAD) * hs * (hs * cit * sx + 16)
+    smem = max(ring + (1 + _WG_AHEAD) * bs * bs * cot * sg,
                ksplit * e * 4)
     return WgradPlan(cit, cot, tm, tn, tiles, ksplit, splits,
                      max(8, _WG_CTAS // splits), smem)
 
 
 @functools.lru_cache(maxsize=None)
-def wgrad_plan(ci: int, co: int, x_dtype, compute_dtype) -> WgradPlan:
+def wgrad_plan(ci: int, co: int, x_dtype, compute_dtype,
+               bs: Optional[int] = None) -> WgradPlan:
     """The split of conv3_wgrad.cu for ci, co in {1, 4, 8, 16, 32, 64}, x
-    stored in `x_dtype` and dy in `compute_dtype`: the widest co tile,
-    then the widest ci tile, that keeps at most WGRAD_ACC_MAX accumulators
-    per thread and fits a ring of 4 staged x planes and two dy planes in
-    WGRAD_SMEM_MAX bytes of shared memory."""
+    stored in `x_dtype` and dy in `compute_dtype`, at block side `bs`
+    (default blocks.BS): the widest co tile, then the widest ci tile, that
+    keeps at most WGRAD_ACC_MAX accumulators per thread and fits a ring of
+    4 staged x planes and two dy planes in WGRAD_SMEM_MAX bytes of shared
+    memory."""
+    bs = bs or B.BS
     sx, sg = x_dtype.itemsize, compute_dtype.itemsize
     cot = co
     while cot >= 1:
         cit = ci
         while cit >= 1:
-            p = _wgrad_plan_for(ci, co, sx, sg, cit, cot)
+            p = _wgrad_plan_for(ci, co, sx, sg, bs, cit, cot)
             if p.tm * p.tn <= WGRAD_ACC_MAX and p.smem <= WGRAD_SMEM_MAX:
                 return p
             cit //= 2
@@ -581,18 +687,19 @@ def _wgrad_inputs(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
     stores (f32 or bf16: no cast copy), dy in the compute dtype."""
     nb, ci, co = bg.nb_cap, bg.channels, dy.shape[-1]
     dev = bg.feats.device
-    if B.BS != 16:
+    if B.BS not in BLOCK_SIDES:
         raise NotImplementedError(
-            f"the conv3_wgrad kernel is written for 16^3 blocks, not BS={B.BS}")
+            f"the conv3_wgrad kernel is written for 16^3 and 8^3 blocks, not "
+            f"BS={B.BS}")
     if cd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv3_wgrad takes float32 or bfloat16, not {cd}")
     if bg.feats.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv3_wgrad reads float32 or bfloat16 features, "
                          f"not {bg.feats.dtype}")
-    if ci not in _CHANNELS or co not in _CHANNELS:
+    if (ci, co) not in WGRAD_PAIRS[B.BS]:
         raise NotImplementedError(
-            f"conv3_wgrad has no instance for ci={ci} co={co}; "
-            f"supported: {_CHANNELS}")
+            f"conv3_wgrad has no BS={B.BS} instance for ci={ci} co={co}; "
+            f"supported: {WGRAD_PAIRS[B.BS]}")
     if tuple(dy.shape) != (nb, B.VOL, co):
         raise ValueError(f"dy {tuple(dy.shape)} does not match the grid's "
                          f"[{nb}, {B.VOL}, co]")
@@ -617,8 +724,8 @@ def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
     """conv3's weight gradient, f32 [3, 3, 3, ci, co], from the input grid
     `bg` and the output gradient dy [nb_cap, VOL, co], read at the live
     slots only.  CPU tensors take `conv3_wgrad_plain`; CUDA tensors launch
-    csrc/conv3_wgrad.cu (ci and co in {1, 4, 8, 16, 32, 64}; x read as the
-    grid stores it, rounded to bf16 in the kernel under bf16 compute) with
+    csrc/conv3_wgrad.cu (the pairs of `WGRAD_PAIRS`; x read as the grid
+    stores it, rounded to bf16 in the kernel under bf16 compute) with
     `wgrad_plan`'s split, or raise.  Counts launches in
     `conv3_wgrad.launches`."""
     cd = compute_dtype or B.COMPUTE_DTYPE
@@ -633,7 +740,7 @@ def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
     part = torch.empty((plan.g, 27, ci, co), dtype=torch.float32, device=dev)
     out = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
     sel = (ctypes.c_int * 3)(plan.ci_tile, plan.co_tile, plan.g)
-    rc = _load().pcgc_conv3_wgrad(
+    rc = getattr(_load(), f"pcgc_conv3_wgrad_bs{B.BS}")(
         x.data_ptr(), g.data_ptr(), nbrs.data_ptr(), mask.data_ptr(),
         bg.count.data_ptr(), part.data_ptr(), out.data_ptr(),
         ctypes.addressof(sel), ci, co, int(x.dtype == torch.bfloat16),

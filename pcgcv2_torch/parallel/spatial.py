@@ -2,9 +2,9 @@
 pcgcv2_tpu/parallel/spatial.py).
 
 Overlap decomposition, as in the JAX package: the final decoder stage's
-receptive field is 8 voxels (at most one 16^3 block), so each rank decodes
-its x-slab of the stride-2 blocks with a 1-block halo and no communication
-inside the conv stack.  Stages 0-1 (small grids) are decoded whole on every
+receptive field is 8 voxels, within one block at either block side (16^3,
+or exactly one at 8^3), so each rank decodes its x-slab of the stride-2
+blocks with a 1-block halo and no communication inside the conv stack.  Stages 0-1 (small grids) are decoded whole on every
 rank.  Communication happens three times per frame:
 
   1. none for the replicated bottleneck and coarse stages;

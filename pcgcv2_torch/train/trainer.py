@@ -12,6 +12,13 @@ The recipe of the JAX package:
     state (`save_state` / `restore_state`, a package-local torch.save file)
     for an exact resume.
 
+`Trainer.train` / `test` collate and copy each batch as they reach it;
+`train_scanned` / `test_scanned` (what scripts/train_rd.py calls) take an
+epoch's batches at once: one host-to-device copy of the stacked batches,
+the per-step loop with nothing fetched inside it, one packed fetch at the
+end.  The JAX package's `mode="scan"` (one lax.scan dispatch per epoch)
+has no PyTorch counterpart and raises.
+
 One step (`Trainer.step`) runs the forward with noise quantization, the
 top-k union ground-truth prune, the loss and metrics, the backward (conv3's
 through its CUDA kernels on the card) and the Adam update.  The training
@@ -232,6 +239,110 @@ class Trainer:
             self.record("Train", self.epoch * 10000 + n_steps)
             self.save_model()
         self.epoch += 1
+
+    # --- epochs in one upload and one fetch ---------------------------------
+
+    def _stacked(self, batches: Sequence[Sequence[np.ndarray]]):
+        """The batches that fit the capacity (the rest skipped, with a log
+        line), each collated to the one plan, stacked and copied to the
+        device at once: (coords [n, capacity, 4], valid [n, capacity]), or
+        None if none fits."""
+        kept = []
+        for coords_list in batches:
+            total = sum(len(c) for c in coords_list)
+            if total > self.capacity:
+                self.logger.info(
+                    f"skip oversized batch ({total} > {self.capacity})")
+                continue
+            kept.append(collate(coords_list, capacity=self.capacity))
+        if not kept:
+            return None
+        coords = np.stack([c for c, _ in kept])
+        valid = np.stack([v for _, v in kept])
+        return (torch.from_numpy(coords).to(self.device),
+                torch.from_numpy(valid).to(self.device))
+
+    def _record_rows(self, rows: np.ndarray, first: int) -> None:
+        """Record the packed per-step rows [bce, bpp, (n_drop,) bces...,
+        metrics...] fetched at the end of an epoch; the three per-scale
+        bces start at column `first`."""
+        for row in rows:
+            bce, bpp = float(row[0]), float(row[1])
+            self.record_set["bce"].append(bce)
+            self.record_set["bces"].append(row[first:first + 3])
+            self.record_set["bpp"].append(bpp)
+            self.record_set["sum_loss"].append(bce + bpp)
+            self.record_set["metrics"].append(
+                row[first + 3:].reshape(3, -1))
+
+    @staticmethod
+    def _check_mode(mode: str) -> None:
+        if mode == "scan":
+            raise ValueError(
+                "mode='scan' (the JAX package's one lax.scan dispatch per "
+                "epoch) has no PyTorch counterpart; use mode='loop'")
+        if mode != "loop":
+            raise ValueError(f"unknown mode {mode!r}")
+
+    def train_scanned(self, batches: Sequence[Sequence[np.ndarray]],
+                      mode: str = "loop"):
+        """One epoch over `batches` (lists of [N, 3] coords) with one
+        host-to-device copy and one packed fetch: oversized batches are
+        skipped on the host, every kept one is collated to the one plan,
+        the stack is copied to the device at once, the steps run with
+        nothing fetched inside the loop, and [bce, bpp, n_drop, bces...]
+        and the metrics of every step come back in one copy at the end.
+        The lr schedule, optimizer reset, records and checkpoint are
+        `train`'s.  mode="scan" raises (no PyTorch counterpart)."""
+        self._check_mode(mode)
+        self.logger.info("=" * 40 + f"\nTraining Epoch: {self.epoch}")
+        if self.epoch > 0 and self.epoch % self.config.lr_halve_every == 0:
+            self.lr = max(self.lr / 2, self.config.lr_min)
+        stacked = self._stacked(batches)
+        if stacked is None:
+            self.epoch += 1
+            return
+        coords_all, valid_all = stacked
+        if self.config.reset_optimizer_each_epoch:
+            self.optimizer = self._new_optimizer()
+        rows = []
+        for coords, valid in zip(coords_all, valid_all):
+            d, mets, n_drop = self.step(coords, valid)
+            rows.append(torch.cat([
+                torch.stack([d["bce"], d["bpp"], n_drop.float()]),
+                d["bces"], mets.reshape(-1)]))
+        rows = torch.stack(rows).cpu().numpy()  # the one fetch
+        for n_drop in rows[:, 2]:
+            if n_drop:
+                self.logger.warning(
+                    f"step dropped {int(n_drop)} occupied blocks "
+                    f"(plan {self.plan} too small for this batch) — "
+                    f"this step trained on corrupted geometry; raise the "
+                    f"BlockPlan capacities")
+        self._record_rows(rows, first=3)
+        self.record("Train", self.epoch * 10000 + len(rows))
+        self.save_model()
+        self.epoch += 1
+
+    def test_scanned(self, batches: Sequence[Sequence[np.ndarray]],
+                     tag: str = "Test", mode: str = "loop"):
+        """`test` over the batches that fit, with one host-to-device copy
+        and one packed fetch.  mode="scan" raises, as in
+        `train_scanned`."""
+        self._check_mode(mode)
+        stacked = self._stacked(batches)
+        if stacked is None:
+            return
+        rows = []
+        with torch.no_grad():
+            for coords, valid in zip(*stacked):
+                out = self.model(coords, valid, self.plan, training=False)
+                d = rd_loss(out, self.config.alpha, self.config.beta, "test")
+                rows.append(torch.cat([
+                    torch.stack([d["bce"], d["bpp"]]), d["bces"],
+                    self._metrics(out).reshape(-1)]))
+        self._record_rows(torch.stack(rows).cpu().numpy(), first=2)
+        self.record(tag, self.epoch)
 
     def test(self, batches: Iterable[Sequence[np.ndarray]],
              tag: str = "Test"):

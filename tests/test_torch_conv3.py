@@ -5,6 +5,11 @@ split-TF32 arithmetic of the tensor-core kernel.  The CUDA kernels
 themselves are checked against conv3_plain on the card by
 chip_smoke.py."""
 
+import json
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -289,3 +294,30 @@ def test_kernel_launch_needs_cuda_tensors():
         TK.launch("tc", tbg, TB.neighbor_rows(tbg), wb,
                   torch.from_numpy(b).to(torch.bfloat16), torch.bfloat16,
                   TK.pack_weight(wb))
+
+
+def test_library_units_are_the_same_at_either_block_side():
+    """One library holds both block sides: its translation units (and so
+    its name, a hash of the sources, units and flags) are the same in a
+    PCGC_BLOCK_SIZE=8 process as here, each side's unit defines its side
+    and instantiates `TC_PAIRS` / `WGRAD_PAIRS` of it, and conv3.cu is
+    built once, as it is."""
+    units = TK.units()
+    code = ("import json; from pcgcv2_torch.ops import conv3 as K, "
+            "blocks as B; assert B.BS == 8; print(json.dumps(K.units()))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env={**os.environ, "PCGC_BLOCK_SIZE": "8"})
+    assert r.returncode == 0, r.stderr
+    assert [list(u) for u in units] == json.loads(r.stdout)
+    names = [n for n, _ in units]
+    assert names == ["conv3", "conv3_tc_bs16", "conv3_wgrad_bs16",
+                     "conv3_tc_bs8", "conv3_wgrad_bs8"]
+    for name, text in units[1:]:
+        src, bs = name.rsplit("_bs", 1)
+        pairs = (TK.TC_PAIRS if src == "conv3_tc" else TK.WGRAD_PAIRS)[
+            int(bs)]
+        assert f"#define PCGC_BS {bs}\n" in text
+        assert text.count("X(") == len(pairs)
+        assert all(f"X({ci}, {co})" in text for ci, co in pairs)
+        assert text.endswith(f'#include "{src}.cu"\n')

@@ -135,3 +135,101 @@ def test_wgrad_inputs_raise(bad):
     err = NotImplementedError if bad == "channels" else ValueError
     with pytest.raises(err):
         TK._wgrad_inputs(bg, dy, nbrs, torch.bfloat16)
+
+
+# --- 8^3 blocks (PCGC_BLOCK_SIZE=8), planned in this BS = 16 process -------
+
+
+@pytest.mark.parametrize("x_dtype,cd", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("ci,co", TK.WGRAD_PAIRS[8])
+def test_wgrad_plan_at_bs8_covers_dw_once_and_fits(ci, co, x_dtype, cd):
+    """The 8^3 instances (the model's pairs) plan as the 16^3 ones do, with
+    10 x 10 staged planes and dy buffers of one 8 x 8 plane."""
+    p = TK.wgrad_plan(ci, co, x_dtype, cd, bs=8)
+    assert ci % p.ci_tile == 0 and co % p.co_tile == 0
+    assert p.splits == (ci // p.ci_tile) * (co // p.co_tile)
+    ent = _thread_entries(p, p.ci_tile, p.co_tile)
+    assert np.array_equal(np.sort(ent.ravel()),
+                          np.arange(27 * p.ci_tile * p.co_tile))
+    assert p.tiles * p.ksplit <= TK.WGRAD_THREADS
+    assert p.tm * p.tn <= TK.WGRAD_ACC_MAX
+    sx = torch.empty((), dtype=x_dtype).element_size()
+    sg = torch.empty((), dtype=cd).element_size()
+    ring = 4 * 10 * (10 * p.ci_tile * sx + 16) + 2 * 64 * p.co_tile * sg
+    assert p.smem == max(ring, p.ksplit * 27 * p.ci_tile * p.co_tile * 4)
+    # the row scan: 256 threads x 2 mask bytes = the 512 slots of a block
+    assert TK.WGRAD_THREADS * 2 == 8 ** 3
+    assert p.smem + 512 * 2 <= 227 * 1024
+    assert p.g * p.splits <= 512 and p.g >= 8
+    # the 16^3 plan of the same instance is unchanged by the bs argument
+    assert TK.wgrad_plan(ci, co, x_dtype, cd) == TK.wgrad_plan(
+        ci, co, x_dtype, cd, bs=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bs", [16, 8])
+def test_tc_plan_fits_and_tiles_every_output_once(bs, dtype):
+    """conv3_tc.cu's tiling at every instance of a block side: one thread
+    per (y, z) voxel of a CTA's rows (32 per warp, two m16 tiles), the
+    CTAs of a row covering its bs^3 outputs once, the mask slab a whole
+    number of words per thread, the ring of 4 planes within a CTA's shared
+    memory; 8^3 blocks whole in one CTA, without a y-split."""
+    for ci, co in TK.TC_PAIRS[bs]:
+        p = TK.tc_plan(ci, co, dtype, bs=bs)
+        assert p.threads % 32 == 0 and p.threads == p.rows * bs
+        assert p.grid[0] * p.xp == bs and p.grid[1] * p.rows == bs
+        assert (p.xp * p.rows * bs) % (4 * p.threads) == 0
+        assert p.smem <= TK.TC_SMEM_MAX
+        if bs == 8:
+            assert (p.xp, p.rows, p.grid) == (8, 8, (1, 1))
+    if bs == 16:  # the one y-split: f32 at ci = 64, in half planes
+        assert TK.tc_plan(64, 64, dtype, bs=16).rows == (
+            8 if dtype == torch.float32 else 16)
+
+
+def test_bs8_instances_cover_the_model():
+    """Every conv3 of the full-width model, and of its input gradients,
+    has an 8^3 tensor-core instance, and every weight gradient an 8^3
+    conv3_wgrad instance: the 8^3 path has no conv3 that could only
+    raise."""
+    from pcgcv2_torch.config import ModelConfig
+    from pcgcv2_torch.models.layers import BConv3
+    from pcgcv2_torch.models.pcc import PCCModel
+
+    pairs = {(m.kernel.shape[3], m.kernel.shape[4])
+             for m in PCCModel(ModelConfig()).modules()
+             if isinstance(m, BConv3)}
+    assert pairs == set(TK.MODEL_PAIRS) == set(TK.WGRAD_PAIRS[8])
+    assert pairs | {(co, ci) for ci, co in pairs} == set(TK.TC_PAIRS[8])
+    for ci, co in TK.TC_PAIRS[8]:
+        assert TK.route(ci, co, torch.bfloat16, bs=8) == "tc"
+    # a pair the model does not use has no 8^3 instance
+    assert TK.route(64, 32, torch.float32, bs=8) == "simt"
+
+
+@pytest.mark.parametrize("bs", [8, 12])
+def test_wrappers_raise_where_no_instance(bs, monkeypatch):
+    """At a block side other than 8 or 16 the forward and dW wrappers
+    raise; at 8, conv3.cu (16^3 only) and a pair outside the 8^3 sets
+    raise too, rather than fall back."""
+    monkeypatch.setattr(TB, "BS", bs)
+    monkeypatch.setattr(TB, "VOL", bs ** 3)
+    m = "meta"
+    bg = _meta_grid(ci=64).replace(
+        feats=torch.empty(64, bs ** 3, 64, device=m),
+        mask=torch.empty(64, bs ** 3, dtype=torch.bool, device=m))
+    nbrs = torch.empty(64, 3, 3, 3, dtype=torch.int32, device=m)
+    w = torch.empty(3, 3, 3, 64, 32, device=m)
+    with pytest.raises(NotImplementedError):
+        TK._check(bg, nbrs, w, None, torch.float32, None, "simt")
+    dy = torch.empty(64, bs ** 3, 32, device=m)
+    with pytest.raises(NotImplementedError):
+        TK._wgrad_inputs(bg, dy, nbrs, torch.float32)
+    if bs == 8:  # a model pair passes the checks
+        w16 = torch.empty(3, 3, 3, 64, 16, device=m)
+        TK._check(bg, nbrs, w16, None, torch.float32,
+                  torch.empty(TK.packed_shape(64, 16, torch.float32),
+                              device=m), "tc")
+        TK._wgrad_inputs(bg, torch.empty(64, 512, 16, device=m), nbrs,
+                         torch.float32)

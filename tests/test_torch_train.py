@@ -541,6 +541,70 @@ def test_save_restore_state_gives_the_same_next_step(tmp_path):
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
 
 
+def _records(tr):
+    """Every record() call of `tr`: (tag, step, copy of the record set)."""
+    seen, real = [], tr.record
+
+    def record(tag, step):
+        seen.append((tag, step, {k: [np.array(v) for v in vs]
+                                 for k, vs in tr.record_set.items()}))
+        real(tag, step)
+
+    tr.record = record
+    return seen
+
+
+def test_train_scanned_matches_the_loop(tmp_path):
+    """train_scanned / test_scanned (one upload and one packed fetch per
+    epoch) against train / test on the same batches from the same seed,
+    over two epochs with an oversized batch skipped in each: the same
+    parameters, records, lr, checkpoints and generator state."""
+    big = [sphere_cloud(30, 4.0, 0), sphere_cloud(30, 4.0, 1)]
+    batches = _batches(3)
+    batches = batches[:1] + [big] + batches[1:]
+    loop, scan = _trainer(tmp_path, "s0"), _trainer(tmp_path, "s1")
+    seen = [_records(tr) for tr in (loop, scan)]
+    for _ in range(2):
+        loop.train(batches)
+        scan.train_scanned(batches)
+    loop.test(_batches(1))
+    scan.test_scanned(_batches(1))
+    assert (scan.epoch, scan.lr) == (loop.epoch, loop.lr) == (2, 5e-4)
+    for k, v in loop.model.state_dict().items():
+        assert torch.equal(scan.model.state_dict()[k], v), k
+    assert torch.equal(loop.generator.get_state(),
+                       scan.generator.get_state())
+    assert [r[:2] for r in seen[1]] == [r[:2] for r in seen[0]] == [
+        ("Train", 3), ("Train", 10003), ("Test", 2)]
+    for (_, _, a), (_, _, b) in zip(*seen):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert len(a[k]) == len(b[k]) > 0, k
+            for x, y in zip(a[k], b[k]):
+                np.testing.assert_array_equal(y, x, err_msg=k)
+    names = sorted(os.listdir(loop.ckptdir))
+    assert names == sorted(os.listdir(scan.ckptdir)) == ["epoch_0.ckpt",
+                                                          "epoch_1.ckpt"]
+
+
+@pytest.mark.parametrize("fn", ["train_scanned", "test_scanned"])
+def test_scanned_mode_scan_raises(tmp_path, fn):
+    """The JAX package's mode="scan" (one lax.scan dispatch per epoch) has
+    no PyTorch counterpart: it raises, before any step."""
+    tr = _trainer(tmp_path, f"m{fn}")
+    with pytest.raises(ValueError, match="scan"):
+        getattr(tr, fn)(_batches(1), mode="scan")
+    assert tr.epoch == 0
+
+
+def test_train_scanned_with_nothing_that_fits(tmp_path):
+    tr = _trainer(tmp_path, "n")
+    big = [sphere_cloud(30, 4.0, 0), sphere_cloud(30, 4.0, 1)]
+    tr.train_scanned([big])
+    tr.test_scanned([big])
+    assert tr.epoch == 1 and not os.listdir(tr.ckptdir)
+
+
 def test_cli_train_on_a_ply_directory(tmp_path, monkeypatch):
     from pcgcv2_torch.cli import train as cli
 
