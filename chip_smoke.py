@@ -45,18 +45,32 @@ Phases (each prints its own lines; any failure exits non-zero):
         (conv3_wgrad.cu) against autograd through conv3_plain on that
         call's own grid, dy and weight, a second dW launch on the same
         inputs giving the same bits, with kernel / plain / library (cuDNN
-        through torch.nn.grad) times and the bound;
+        through torch.nn.grad) times and the bound; the trainer's Adam
+        (capturable, tensor lr, in-place reset) against torch's plain
+        Adam on the step's gradients over 5 steps, an lr halving and a
+        reset (parameters and moments within 1e-7 of their max);
      b. the full-width trainer step as scripts/train_rd.py runs it (remat
-        on, alpha 2, beta 1, lr 8e-4), bf16 then f32: 20 steps on the
+        on, alpha 2, beta 1, lr 8e-4), bf16 then f32: 12 steps on the
         batch, the median of steps 1-5, peak memory, forward / dX / dW
         launches per step (127 / 63 / 64, every forward and dX on the
         tensor cores), finite losses, no dropped block, a falling loss;
      c. pcgcv2_torch.cli.train for one epoch (f32) on 20 synthetic clouds
         that pcgcv2_torch.cli.generate_dataset --synthetic writes as .ply,
         and its checkpoint through Coder on the golden frame;
-     d. Trainer.train_scanned against Trainer.train, bf16, in turns on
-        epochs of 10 batches of the 8 clouds: wall per step, the same
-        127 / 63 / 64 launches per step.
+     d. Trainer.train_scanned in mode="scan" (one CUDA graph captured
+        per epoch, replayed per step) and mode="loop", bf16 and f32:
+        from one seed, a scan epoch against a loop epoch of 5 batches
+        that each leave out another cloud (the captured step holds 127 /
+        63 / 64 launches, every forward and dX on the tensor cores; 4
+        replays; per-step losses within 1e-5 relative, parameters within
+        1e-5 of max |p|, the bits compared; the generator state equal),
+        and test_scanned in both modes on 4 subsets (rows within 1e-5
+        relative); then train, the loop and the scan in turns on calls
+        of 27 batches of the 8 clouds (scripts/train_rd.py's call), and
+        test_scanned's loop and scan in turns: ms per step, peak memory,
+        the capture's ms and the replayed steps' ms, the steps a call
+        from which the graph pays; the first scan turn of each passes no
+        mode and must take the graph; one replay profiled.
   8. the parallel paths (pcgcv2_torch/parallel) on the one card, bf16:
      a. make_dp_train_step at world size 1 over NCCL: 3 steps on phase
         7b's batch against 3 Trainer.steps from the same weights and seed
@@ -99,7 +113,7 @@ Phases (each prints its own lines; any failure exits non-zero):
         a profile as phase 5's, and the frame in 8 slabs, 0 points from
         the monolithic decode;
      d. phase 7a's checks of one training step per dtype (127 / 63 / 64
-        launches on the 8^3 instances) and 10 trainer steps per dtype.
+        launches on the 8^3 instances) and 7 trainer steps per dtype.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a CUDA device or without the pcgcv2_torch
@@ -120,6 +134,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -162,9 +177,20 @@ VOX10_GATES = {"bfloat16": (0.492671, 69.4159), "float32": (0.493043, 69.4005)}
 VOX11_GATES = {"bfloat16": (0.494696, 74.9098), "float32": (0.495046, 74.9102)}
 # phase 7: the training batch and its plan
 TRAIN_BATCH, TRAIN_RES, TRAIN_CAPACITY = 8, 128, 524288
-TRAIN_STEPS = 20
-SCANNED_BATCHES = 10  # 7d: batches per epoch of train_scanned and train
-BS8_TRAIN_STEPS = 10  # 9d: trainer steps per dtype at 8^3 blocks
+TRAIN_STEPS = 12
+# 7d: batches of one timed train_scanned / test_scanned / train call:
+# scripts/train_rd.py's call at its defaults (216 training clouds of 240
+# in batches of 8)
+SCANNED_BATCHES = 27
+# 7d: batches of the scan-against-loop epoch that the gates read
+SCAN_GATE_BATCHES = 5
+# 7d, scan against loop: losses relative, parameters over max |p|
+# (phase 8a's tolerances), the test rows relative
+SCAN_TOL = 1e-5
+# 7a: the card's Adam against torch's plain Adam, parameters and moments
+# over their max (tests/test_torch_train.py holds Adam to optax at 1e-7)
+ADAM_TOL = 1e-7
+BS8_TRAIN_STEPS = 7  # 9d: trainer steps per dtype at 8^3 blocks
 # conv3 launches per training step with remat: (forward, of which tensor
 # cores, dX, of which tensor cores, dW).  Remat runs each forward twice but
 # the encoder's last conv, which lies outside the checkpointed scales; the
@@ -1207,6 +1233,8 @@ def phase_train_kernels(device, workdir: str, clouds,
         with spy_forward(fwd), spy_backward(rows):
             tr.step(coords, valid)
         torch.cuda.synchronize()
+        result[f"adam_{dtype}"] = adam_against_plain(tr.model,
+                                                     f"{title} {dtype}")
         del tr
         torch.cuda.empty_cache()
         n_dx = sum(r["dx"] for r in rows)
@@ -1225,6 +1253,81 @@ def phase_train_kernels(device, workdir: str, clouds,
         assert len(fwd) == TRAIN_LAUNCHES[0], \
             f"{len(fwd)} forward launches in a step ({dtype})"
     return result
+
+
+def adam_against_plain(model, title: str) -> list:
+    """The trainer's Adam as it runs on the card (`make_optimizer`:
+    capturable, the lr a device tensor that `set_lr` writes, the state
+    zeroed in place by `reset_optimizer`) against torch's plain Adam (a
+    float lr, not capturable, a new one at the reset), from the
+    parameters and gradients of the real step `model` just took: two
+    steps, the lr halved, a step, a reset, two steps.  Gate: after every
+    step the parameters and both moments within ADAM_TOL of their max,
+    while each step moves the parameters by over 100 x ADAM_TOL."""
+    import torch
+    from pcgcv2_torch.train.trainer import (make_optimizer, reset_optimizer,
+                                            set_lr)
+
+    cfg = train_config()
+    live = [p for p in model.parameters() if p.grad is not None]
+    grads = [p.grad.detach().clone() for p in live]
+    ps = {m: [p.detach().clone().requires_grad_(True) for p in live]
+          for m in ("card", "plain")}
+    opt = make_optimizer(ps["card"], cfg.lr, cfg.weight_decay)
+    group = opt.param_groups[0]
+    assert group["capturable"] and group["lr"].device.type == "cuda", \
+        f"{title}: the trainer's Adam is not capturable on the card"
+
+    def plain(lr):
+        return torch.optim.Adam(ps["plain"], lr=lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=cfg.weight_decay)
+
+    def gap(a, b):
+        return (max(float((x - y).abs().max()) for x, y in zip(a, b))
+                / max(float(x.abs().max()) for x in a))
+
+    ref, lr, rows = plain(cfg.lr), cfg.lr, []
+    for op in ("step", "step", "halve", "step", "reset", "step", "step"):
+        if op == "halve":
+            lr /= 2
+            set_lr(opt, lr)
+            ref.param_groups[0]["lr"] = lr
+            continue
+        if op == "reset":
+            reset_optimizer(opt)
+            ref = plain(lr)
+            continue
+        before = [p.detach().clone() for p in ps["plain"]]
+        for m in ps:
+            for p, g in zip(ps[m], grads):
+                p.grad = g.clone()
+        opt.step()
+        ref.step()
+        row = {"lr": lr, "moved": gap(ps["plain"], before),
+               "params": gap(ps["plain"], ps["card"]),
+               "bits": all(torch.equal(a, b)
+                           for a, b in zip(ps["plain"], ps["card"]))}
+        for k in ("exp_avg", "exp_avg_sq"):
+            row[k] = gap([ref.state[p][k] for p in ps["plain"]],
+                         [opt.state[p][k] for p in ps["card"]])
+        rows.append(row)
+    steps = {(int(opt.state[a]["step"]), int(ref.state[b]["step"]))
+             for a, b in zip(ps["card"], ps["plain"])}
+    worst = max(r[k] for r in rows for k in ("params", "exp_avg",
+                                             "exp_avg_sq"))
+    log(f"{title}: Adam capturable (tensor lr, in-place reset) against "
+        f"plain Adam (float lr, new at the reset) on the step's gradients, "
+        f"5 steps over an lr halving and a reset: parameters and moments "
+        f"differ by at most {worst:.3g} of their max (gate {ADAM_TOL}; "
+        f"parameter bits equal per step "
+        f"{[r['bits'] for r in rows]}), a step moves them by "
+        f"{min(r['moved'] for r in rows):.3g}-"
+        f"{max(r['moved'] for r in rows):.3g}")
+    assert steps == {(2, 2)}, f"{title}: Adam step counts {steps}"
+    assert worst <= ADAM_TOL, f"{title}: Adam differs by {worst}"
+    assert min(r["moved"] for r in rows) > 100 * ADAM_TOL, \
+        f"{title}: an Adam step moved the parameters too little to compare"
+    return rows
 
 
 def log_backward(rows, dtype: str) -> None:
@@ -1468,38 +1571,325 @@ def phase_train_cli(device, workdir: str):
                                  counts))}
 
 
-def phase_train_scanned(device, workdir: str, card: str, clouds):
-    """7d: Trainer.train_scanned (one upload and one packed fetch per
-    epoch) against Trainer.train (a copy and a fetch per step), bf16, on
-    epochs of SCANNED_BATCHES batches of the 8 clouds: wall per step of
-    each epoch (its checkpoint write included), in turns after a warm-up
-    epoch; the same launches per step in both."""
+class _ProfiledGraph:
+    """A captured graph whose `at`-th replay (0-based) runs under the
+    profiler: the replay alone, closed by a device sync."""
+
+    def __init__(self, graph, at: int, out: dict):
+        self.graph, self.at, self.out, self.n = graph, at, out, 0
+
+    def replay(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.n != self.at:
+            self.n += 1
+            return self.graph.replay()
+        self.n += 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            self.graph.replay()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        self.out["prof"], self.out["sec"] = prof, sec
+
+
+@contextlib.contextmanager
+def spy_scan(tr, spans: list, profile_at: Optional[int] = None):
+    """Spans of `tr`'s scanned runs (Trainer._run), one dict per call:
+    mode, batches, host seconds of the whole run, and in mode="scan" on
+    the card those of the eager first step (to the capture, device work
+    included), of the capture (`captured`: the conv3 launches counted
+    while it ran) and of the replays with their row copies and the fetch.
+    With `profile_at`, that replay of each capture runs under the
+    profiler (`profiled`)."""
     import torch
 
-    log(f"== phase 7d: train_scanned vs train, bf16, epochs of "
-        f"{SCANNED_BATCHES} batches ==")
-    tr = make_trainer("bfloat16", f"{workdir}/7d", device)
-    batches = [clouds] * SCANNED_BATCHES
-    tr.train(batches[:2])  # warm-up
-    per_step = {"train": [], "train_scanned": []}
-    for fn in ("train", "train_scanned", "train_scanned", "train"):
-        set_counts()
-        sec, _ = timed(lambda: getattr(tr, fn)(batches))
-        counts = launch_counts()
-        per_step[fn].append(sec / SCANNED_BATCHES * 1e3)
-        log(f"7d {fn}: {SCANNED_BATCHES} steps in {sec:.3f} s, "
-            f"{per_step[fn][-1]:.2f} ms per step  conv3 fwd / dX / dW "
-            f"{counts[0]} / {counts[2]} / {counts[4]}  [{card}]")
-        assert counts == tuple(SCANNED_BATCHES * c for c in TRAIN_LAUNCHES), \
-            f"7d {fn}: launches {counts}"
-    del tr
+    real_run, real_capture = tr._run, tr._capture
+
+    def capture(fn, static, stream):
+        span = spans[-1]
+        torch.cuda.synchronize()
+        c0, t = launch_counts(), time.perf_counter()
+        span["first_s"] = t - span["t0"]
+        graph, row = real_capture(fn, static, stream)
+        span["t1"] = time.perf_counter()
+        span["capture_s"] = span["t1"] - t
+        span["captured"] = tuple(b - a for a, b in zip(c0, launch_counts()))
+        if profile_at is not None:
+            span["profiled"] = {}
+            graph = _ProfiledGraph(graph, profile_at, span["profiled"])
+        return graph, row
+
+    def run(fn, coords_all, valid_all, mode):
+        torch.cuda.synchronize()
+        span = {"mode": mode, "n": len(coords_all),
+                "t0": time.perf_counter()}
+        spans.append(span)
+        rows = real_run(fn, coords_all, valid_all, mode)  # fetched: synced
+        t = time.perf_counter()
+        span["run_s"] = t - span["t0"]
+        if "t1" in span:
+            span["replays_s"] = t - span["t1"]
+        return rows
+
+    tr._run, tr._capture = run, capture
+    try:
+        yield spans
+    finally:
+        del tr._run, tr._capture
+
+
+def record_spy(tr) -> list:
+    """Every record() call of `tr`: (tag, copy of the record set)."""
+    import numpy as np
+
+    seen, real = [], tr.record
+
+    def record(tag, step):
+        seen.append((tag, {k: np.array(v) for k, v in tr.record_set.items()
+                           if v}))
+        real(tag, step)
+
+    tr.record = record
+    return seen
+
+
+def max_rel(a, b) -> float:
+    """max |a - b| / |a| elementwise (0 where both are 0)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = np.abs(a - b)
+    return float(np.max(np.where(d == 0, 0.0, d / np.maximum(np.abs(a),
+                                                             1e-30))))
+
+
+def scan_against_loop(device, workdir: str, card: str, clouds, dtype: str,
+                      n_batches: int, title: str) -> tuple:
+    """From one seed: one epoch of train_scanned(mode="loop") on one
+    trainer and of mode="scan" on another, on `n_batches` batches that
+    each leave out another of the 8 clouds; then test_scanned in both
+    modes on 4 other subsets.  Gates: the loop's launches n x
+    TRAIN_LAUNCHES; the scan's eager first step and its capture
+    TRAIN_LAUNCHES each, n - 1 replays; per-step losses within SCAN_TOL
+    relative and parameters within SCAN_TOL of max |p|; the generator
+    state equal; the test rows within SCAN_TOL relative.  Returns the
+    numbers and the scan trainer, warmed up, for timing."""
+    import numpy as np
+    import torch
+
+    cfg = train_config()
+    batches = [[c for j, c in enumerate(clouds) if j != i % len(clouds)]
+               for i in range(n_batches)]
+    trs = {m: make_trainer(dtype, f"{workdir}/{title}_{m}", device)
+           for m in ("loop", "scan")}
+    p0 = {m: named_copy(tr.model) for m, tr in trs.items()}
+    assert rel_spread(p0["loop"], p0["scan"]) == 0, f"{title}: init differs"
+    seen = {m: record_spy(tr) for m, tr in trs.items()}
+    counts, spans = {}, []
+    with spy_scan(trs["scan"], spans):
+        for m, tr in trs.items():
+            set_counts()
+            tr.train_scanned(batches, mode=m)
+            counts[m] = launch_counts()
+    (span,) = spans
+    recs = {m: seen[m][-1][1] for m in trs}
+    loss = {m: cfg.alpha * r["bce"] + cfg.beta * r["bpp"]
+            for m, r in recs.items()}
+    d_loss = max_rel(loss["loop"], loss["scan"])
+    d_rec = {k: max_rel(recs["loop"][k], recs["scan"][k])
+             for k in recs["loop"]}
+    same_rec = all(np.array_equal(recs["loop"][k], recs["scan"][k])
+                   for k in recs["loop"])
+    p = {m: named_copy(tr.model) for m, tr in trs.items()}
+    d_p = rel_spread(p["loop"], p["scan"])
+    same_p = all(torch.equal(p["loop"][k], p["scan"][k]) for k in p["loop"])
+    same_rng = torch.equal(trs["loop"].generator.get_state(),
+                           trs["scan"].generator.get_state())
+    replays = trs["scan"].graph_replays
+    log(f"{title} {dtype}: loop epoch of {n_batches} batches: conv3 fwd / "
+        f"dX / dW {counts['loop'][0]} / {counts['loop'][2]} / "
+        f"{counts['loop'][4]}; scan epoch: eager first step + capture "
+        f"{counts['scan'][0]} / {counts['scan'][2]} / {counts['scan'][4]}, "
+        f"the capture alone {span['captured']}, {replays} replays")
+    per_key = ", ".join(f"{k} {v:.3g}" for k, v in d_rec.items())
+    log(f"{title} {dtype}: scan against loop: per-step losses differ by "
+        f"{d_loss:.3g} (relative; records {per_key}; "
+        f"all record bits equal {same_rec}), parameters by {d_p:.3g} of max "
+        f"|p| (bits equal {same_p}), gate {SCAN_TOL}; generator state "
+        f"equal {same_rng}; losses {np.round(loss['scan'], 5).tolist()}")
+    assert counts["loop"] == tuple(n_batches * c for c in TRAIN_LAUNCHES), \
+        f"{title} {dtype}: loop launches {counts['loop']}"
+    assert span["captured"] == TRAIN_LAUNCHES, \
+        f"{title} {dtype}: the captured step holds {span['captured']}, " \
+        f"want {TRAIN_LAUNCHES} (fwd, fwd tc, dX, dX tc, dW)"
+    assert counts["scan"] == tuple(2 * c for c in TRAIN_LAUNCHES), \
+        f"{title} {dtype}: scan launches {counts['scan']}"
+    assert replays == n_batches - 1, f"{title} {dtype}: {replays} replays"
+    assert len(loss["scan"]) == n_batches and np.all(
+        np.isfinite(loss["scan"])), f"{title} {dtype}: scan losses"
+    assert d_loss <= SCAN_TOL, f"{title} {dtype}: losses differ by {d_loss}"
+    assert d_p <= SCAN_TOL, f"{title} {dtype}: parameters differ by {d_p}"
+    assert same_rng, f"{title} {dtype}: generator states differ"
+    assert len(np.unique(recs["scan"]["bce"])) == n_batches, \
+        f"{title} {dtype}: a replay repeated another step's loss"
+
+    tests = [clouds, clouds[:4], clouds[4:], clouds[2:6]]
+    tr, rows, tcounts = trs["loop"], {}, {}
+    seen_t = record_spy(tr)
+    with spy_scan(tr, spans):
+        for m in ("loop", "scan"):
+            set_counts()
+            tr.test_scanned(tests, mode=m)
+            tcounts[m] = launch_counts()
+            rows[m] = np.concatenate(
+                [seen_t[-1][1][k].reshape(len(tests), -1)
+                 for k in ("bce", "bpp", "bces", "metrics")], axis=1)
+    d_test = max_rel(rows["loop"], rows["scan"])
+    log(f"{title} {dtype}: test_scanned on {len(tests)} batches, scan "
+        f"against loop: rows differ by {d_test:.3g} (relative; bits equal "
+        f"{np.array_equal(rows['loop'], rows['scan'])}), gate {SCAN_TOL}; "
+        f"conv3 launches loop {tcounts['loop'][0]}, scan {tcounts['scan'][0]} "
+        f"(capture {spans[-1]['captured'][0]}), {tr.graph_replays} replays")
+    assert tr.graph_replays == len(tests) - 1
+    assert spans[-1]["captured"][0] * len(tests) == tcounts["loop"][0] > 0
+    assert d_test <= SCAN_TOL, f"{title} {dtype}: test rows differ {d_test}"
+    assert len(np.unique(rows["scan"][:, 0])) == len(tests), \
+        f"{title} {dtype}: test rows repeat"
+    del trs["loop"], tr
     torch.cuda.empty_cache()
-    best = {k: min(v) for k, v in per_step.items()}
-    log(f"7d: best ms per step, train {best['train']:.2f}, train_scanned "
-        f"{best['train_scanned']:.2f} (ratio "
-        f"{best['train_scanned'] / best['train']:.3f})  [{card}]")
-    return {"ms_per_step": per_step, "best_ms_per_step": best,
-            "batches": SCANNED_BATCHES}
+    return {"loop_launches": counts["loop"], "scan_launches": counts["scan"],
+            "captured": span["captured"], "replays": replays,
+            "diff_loss": d_loss, "diff_records": d_rec,
+            "same_record_bits": same_rec, "diff_params": d_p,
+            "same_param_bits": same_p, "same_generator": same_rng,
+            "diff_test_rows": d_test,
+            "capture_ms": span["capture_s"] * 1e3,
+            "losses": loss["scan"].tolist()}, trs["scan"]
+
+
+def phase_train_scanned(device, workdir: str, card: str, clouds):
+    """7d: Trainer.train_scanned in mode="scan" (one captured CUDA graph
+    replayed per step) and mode="loop" (one upload and one packed fetch
+    per call) and Trainer.train (a copy and a fetch per step), bf16 and
+    f32.  First `scan_against_loop`'s gates on SCAN_GATE_BATCHES batches,
+    then the three in turns on calls of SCANNED_BATCHES batches of the 8
+    clouds (scripts/train_rd.py's call): wall per step of each call (its
+    checkpoint write included), peak memory, and for the scan its eager
+    first step, its capture and its replayed steps; then test_scanned's
+    loop and scan in turns on as many batches.  The first scan turn of
+    each passes no mode: the card's default must take the graph there.
+    The same launches per step in train and the loop, those of one eager
+    step and one capture in the scan.  From the readings, the steps per
+    call from which the graph pays (`SCAN_MIN_STEPS` of the trainer is
+    set from it).  One replay per dtype is profiled."""
+    import statistics
+
+    import torch
+
+    from pcgcv2_torch.train.trainer import SCAN_MIN_STEPS
+
+    n = SCANNED_BATCHES
+    log(f"== phase 7d: train_scanned scan / loop and train, calls of {n} "
+        f"batches; test_scanned scan / loop ==")
+    result = {}
+    for dtype in ("bfloat16", "float32"):
+        gates, tr = scan_against_loop(device, workdir, card, clouds, dtype,
+                                      SCAN_GATE_BATCHES, "7d")
+        batches = [clouds] * n
+        runs = {"train": [], "loop": [], "scan": []}
+        tests = {"loop": [], "scan": []}
+        turns = [("train", m) for m in ("train", "loop", "scan", "scan",
+                                        "loop", "train")] + \
+            [("test", m) for m in ("loop", "scan", "scan", "loop")]
+        for turn, (fn, mode) in enumerate(turns):
+            default = mode == "scan" and turns[turn - 1][1] != "scan"
+            asked = None if default else mode
+            spans = []
+            replays = tr.graph_replays
+            with spy_scan(tr, spans):
+                set_counts()
+                sec, peak, _ = peak_of(
+                    (lambda: tr.train(batches)) if mode == "train" else
+                    (lambda: tr.train_scanned(batches, mode=asked))
+                    if fn == "train" else
+                    (lambda: tr.test_scanned(batches, mode=asked)))
+                counts = launch_counts()
+            r = {"ms_per_step": sec / n * 1e3, "peak_bytes": peak,
+                 "launches": counts, "mode_asked": asked}
+            if mode == "scan":
+                (span,) = spans
+                assert span["mode"] == "scan", \
+                    f"7d {dtype} {fn}: no mode given, {span['mode']} taken"
+                r.update(first_ms=span["first_s"] * 1e3,
+                         capture_ms=span["capture_s"] * 1e3,
+                         replay_ms=span["replays_s"] / (n - 1) * 1e3)
+                assert tr.graph_replays - replays == n - 1
+                if fn == "train":
+                    assert span["captured"] == TRAIN_LAUNCHES
+                r["captured"] = span["captured"]
+            if fn == "train":
+                want = tuple((2 if mode == "scan" else n) * c
+                             for c in TRAIN_LAUNCHES)
+                assert counts == want, f"7d {dtype} {mode}: launches {counts}"
+                runs[mode].append(r)
+            else:
+                tests[mode].append(r)
+            extra = (f"  first step {r['first_ms']:.2f} ms, capture "
+                     f"{r['capture_ms']:.2f} ms, replayed steps "
+                     f"{r['replay_ms']:.2f} ms each" if mode == "scan"
+                     else "")
+            what = ("train" if mode == "train" else
+                    f"{fn}_scanned(mode={asked!r}) {mode}")
+            log(f"7d {dtype} {what}: {n} steps in {sec:.3f} s, "
+                f"{r['ms_per_step']:.2f} ms per step, peak "
+                f"{peak / 2**30:.2f} GiB, conv3 fwd / dX / dW {counts[0]} / "
+                f"{counts[2]} / {counts[4]}{extra}  [{card}]")
+        # test_scanned: the loop's forwards n x those of one capture
+        cap = tests["scan"][0]["captured"][0]
+        assert cap > 0 and all(x["launches"][0] == n * cap
+                               for x in tests["loop"])
+        assert all(x["launches"][0] == 2 * cap for x in tests["scan"])
+        spans = []
+        with spy_scan(tr, spans, profile_at=1):
+            tr.train_scanned(batches[:3], mode="scan")
+        prof = spans[0]["profiled"]
+        gates["profile_replay"] = train_profile(prof["prof"], prof["sec"],
+                                                dtype, "_replay")
+        best = {m: min(x["ms_per_step"] for x in v) for m, v in runs.items()}
+        replay = min(x["replay_ms"] for x in runs["scan"])
+        pays = {}
+        for fn, rs in (("train", runs), ("test", tests)):
+            # one call's eager first step + capture against n - 1 replays:
+            # the graph pays from (first + capture - replay) / (loop -
+            # replay) steps a call on
+            sc, lo = rs["scan"], rs["loop"]
+            rep = statistics.median(x["replay_ms"] for x in sc)
+            over = statistics.median(x["first_ms"] + x["capture_ms"]
+                                     for x in sc) - rep
+            gain = statistics.median(x["ms_per_step"] for x in lo) - rep
+            pays[fn] = over / gain if gain > 0 else float("inf")
+        tbest = {m: min(x["ms_per_step"] for x in v)
+                 for m, v in tests.items()}
+        log(f"7d {dtype}: best ms per step, train {best['train']:.2f}, loop "
+            f"{best['loop']:.2f}, scan {best['scan']:.2f} (replayed steps "
+            f"{replay:.2f}; scan over train "
+            f"{best['scan'] / best['train']:.3f}); test_scanned loop "
+            f"{tbest['loop']:.2f}, scan {tbest['scan']:.2f} ms per batch; "
+            f"the graph pays from {pays['train']:.2f} steps a call "
+            f"(train_scanned) and {pays['test']:.2f} (test_scanned); "
+            f"SCAN_MIN_STEPS {SCAN_MIN_STEPS}  [{card}]")
+        result[dtype] = {**gates, "runs": runs, "tests": tests,
+                         "best_ms_per_step": best, "best_test_ms": tbest,
+                         "best_replay_ms": replay, "pays_from": pays,
+                         "graph_replays": tr.graph_replays}
+        del tr
+        torch.cuda.empty_cache()
+    result["batches"] = n
+    return result
 
 
 def phase_train(device, workdir: str, card: str):
@@ -2521,6 +2911,15 @@ def main(argv=None) -> int:
         })
     if "train" in report:
         kernels += train_kernel_entries(report["train"])
+        # mode="scan": the launches one captured step holds (7d), replayed
+        # graph_replays times there
+        scan = report["train"]["scanned"]
+        for k in kernels:
+            i = {"conv3": 0, "conv3_dgrad": 2, "conv3_wgrad": 4}[k["name"]]
+            k["scan_step"] = {
+                dt: {"captured_launches": scan[dt]["captured"][i],
+                     "graph_replays": scan[dt]["graph_replays"]}
+                for dt in ("float32", "bfloat16")}
     if "parallel" in report:
         launches = parallel_launches(report["parallel"])
         for k in kernels:

@@ -297,14 +297,23 @@ def extract_coords(bcoords: np.ndarray, bits: np.ndarray, log_bs: int,
                    stride: int = 1):
     """Native twin of ops.blocks.host_extract: expand MSB-first packed
     occupancy bits to int32 [n, 3] voxel coords in canonical block-scan
-    order."""
+    order.  bcoords: int [nb, 3] block coords, bits: uint8 [nb, VOL // 8].
+
+    Raises ValueError on a `bcoords` of another shape (the C side reads
+    it as nb rows of 3), and RuntimeError when the C side extracts
+    another count than the bits' popcount."""
     lib = _load()
     bc = np.ascontiguousarray(bcoords, dtype=np.int32)
     bb = np.ascontiguousarray(bits, dtype=np.uint8)
     nb, bpb = bb.shape
+    if bc.ndim != 2 or bc.shape != (nb, 3):
+        raise ValueError(f"bcoords must be [{nb}, 3] (one row per block of "
+                         f"bits), got {list(bc.shape)}")
     total = lib.popcount_bytes(_u8(bb), nb * bpb)
     out = np.empty((int(total), 3), dtype=np.int32)
     n = lib.extract_coords(_i32(bc), _u8(bb), nb, bpb, log_bs, stride,
                            _i32(out), int(total))
-    assert n == total, "extract_coords under/overflow vs popcount"
+    if n != total:
+        raise RuntimeError(f"extract_coords returned {n} voxels, the "
+                           f"popcount of the bits is {total}")
     return out

@@ -38,8 +38,12 @@ from pcgcv2_torch.ops.blocks import BlockGrid
 
 def _remat(fn, *args):
     """fn(*args) with its interior activations recomputed in the backward
-    (non-reentrant: the arguments and results are BlockGrids)."""
-    return checkpoint(fn, *args, use_reentrant=False)
+    (non-reentrant: the arguments and results are BlockGrids).  The scales
+    and stages draw no random numbers (the training noise is drawn after
+    the encoder), so the RNG state is not stashed: exact, and a CUDA graph
+    may capture the step, which reading the CUDA RNG state would refuse."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class Encoder(nn.Module):

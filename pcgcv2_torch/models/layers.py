@@ -29,7 +29,12 @@ class _Weighted(nn.Module):
     Where a gradient is wanted (grad enabled, parameters requiring it) the
     cast is live and carries the gradient back to the parameters; under
     `torch.inference_mode` or `torch.no_grad` it is detached.  `_prepare`
-    makes the op's other forms of the cast kernel under the same key."""
+    makes the op's other forms of the cast kernel under the same key.
+
+    The key is read by Python, so a CUDA graph that replays the layer
+    never sees it change: `forget_casts` before a capture makes the graph
+    record the cast (and the packs) and redo them from the current
+    parameters at every replay."""
 
     def __init__(self, kernel_shape, co: int):
         super().__init__()
@@ -56,6 +61,10 @@ class _Weighted(nn.Module):
 
     def _prepare(self, kernel: torch.Tensor):
         return None
+
+    def forget_cast(self) -> None:
+        """Drop the cached cast: the next `weights()` makes it anew."""
+        self._cast_key = self._cast = self._prepared = None
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Training from scratch, with the JAX package's initializers: the
@@ -102,10 +111,21 @@ class BConv3(_Weighted):
             self._flip = pack_weight(flip_weight(kc))
         return self._flip
 
+    def forget_cast(self) -> None:
+        super().forget_cast()
+        self._flip = None
+
     def forward(self, bg: BlockGrid, nbrs: torch.Tensor) -> BlockGrid:
         k, b = self.weights()
         flip = self.packed_flip() if torch.is_grad_enabled() else None
         return conv3(bg, nbrs, k, b, packed=self._prepared, packed_flip=flip)
+
+
+def forget_casts(model: nn.Module) -> None:
+    """`forget_cast` on every weighted layer of `model`."""
+    for m in model.modules():
+        if isinstance(m, _Weighted):
+            m.forget_cast()
 
 
 class BConv1(_Weighted):

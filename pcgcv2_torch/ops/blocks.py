@@ -166,8 +166,12 @@ def _scatter_drop(size: int, pos: torch.Tensor, ok: torch.Tensor, values,
     device = pos.device
     ok = ok & (pos >= 0) & (pos < size)
     idx = torch.where(ok, pos, size + _arange(n, device))
-    vshape = values.shape[1:] if torch.is_tensor(values) else ()
-    out = torch.full((size + n, *vshape), fill, dtype=dtype, device=device)
+    if not torch.is_tensor(values):
+        # made on the device: a Python scalar would be copied from the
+        # host, which a CUDA graph's capture refuses
+        values = torch.full((), values, dtype=dtype, device=device)
+    out = torch.full((size + n, *values.shape[1:]), fill, dtype=dtype,
+                     device=device)
     out[idx] = values
     return out[:size]
 

@@ -493,7 +493,10 @@ def launch(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
 
     `conv3` calls it with `route`'s choice; it is public so that a check
     can time both kernels at one shape.  Counts every launch in
-    `conv3.launches` and the tensor-core ones in `conv3.tc_launches`."""
+    `conv3.launches` and the tensor-core ones in `conv3.tc_launches`.
+    The counts are Python, so a CUDA graph's capture counts its launches
+    once and its replays count nothing (`Trainer.graph_replays` counts
+    the replays)."""
     out = _run(kernel, bg, nbrs, weight, bias, cd, packed)
     conv3.launches += 1
     conv3.tc_launches += kernel == "tc"
@@ -571,7 +574,8 @@ def conv3_dgrad(bg: B.BlockGrid, nbrs: torch.Tensor, weight: torch.Tensor,
     "tc" route with `packed_flip = pack_weight(flip_weight(weight))` (the
     layers pack it once per step).  Counts its launches in
     `conv3_dgrad.launches` (the tensor-core ones in
-    `conv3_dgrad.tc_launches`), not in `conv3.launches`."""
+    `conv3_dgrad.tc_launches`), not in `conv3.launches`; like those, at
+    a CUDA graph's capture and not at its replays."""
     cd = compute_dtype or B.COMPUTE_DTYPE
     wf = flip_weight(weight)
     if bg.feats.device.type == "cpu":
@@ -727,7 +731,8 @@ def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
     csrc/conv3_wgrad.cu (the pairs of `WGRAD_PAIRS`; x read as the grid
     stores it, rounded to bf16 in the kernel under bf16 compute) with
     `wgrad_plan`'s split, or raise.  Counts launches in
-    `conv3_wgrad.launches`."""
+    `conv3_wgrad.launches`: like `conv3.launches`, at a CUDA graph's
+    capture and not at its replays."""
     cd = compute_dtype or B.COMPUTE_DTYPE
     dev = bg.feats.device
     if dev.type == "cpu":

@@ -15,9 +15,19 @@ The recipe of the JAX package:
 `Trainer.train` / `test` collate and copy each batch as they reach it;
 `train_scanned` / `test_scanned` (what scripts/train_rd.py calls) take an
 epoch's batches at once: one host-to-device copy of the stacked batches,
-the per-step loop with nothing fetched inside it, one packed fetch at the
-end.  The JAX package's `mode="scan"` (one lax.scan dispatch per epoch)
-has no PyTorch counterpart and raises.
+the steps with nothing fetched between them, one packed fetch at the end.
+Their `mode="loop"` runs the steps one by one.  `mode="scan"` is the
+counterpart of the JAX package's one lax.scan dispatch per epoch:
+on the card the epoch's first step runs eagerly, the second is captured as
+one CUDA graph (forward with the noise, loss and metrics, backward through
+the conv3 kernels, Adam update), and it and every later step replay it,
+one graph launch per step after the copy of that step's batch into the
+graph's input buffers.  The same steps on the same random numbers as the
+loop: the trainer's generator is registered with the graph, so each replay
+draws the next noise.  On the CPU, where the caller asks for it, the scan
+runs the same steps over those buffers eagerly.  With no mode given, the
+card takes the graph from SCAN_MIN_STEPS steps a call on and the loop
+below that; the CPU takes the loop.
 
 One step (`Trainer.step`) runs the forward with noise quantization, the
 top-k union ground-truth prune, the loss and metrics, the backward (conv3's
@@ -39,9 +49,17 @@ import torch
 from pcgcv2_torch import checkpoint
 from pcgcv2_torch.config import BlockPlan, ModelConfig, TrainConfig
 from pcgcv2_torch.data.voxelize import collate
+from pcgcv2_torch.models.layers import forget_casts
 from pcgcv2_torch.models.pcc import PCCModel
 from pcgcv2_torch.ops.blocks import resolve_device
 from pcgcv2_torch.train.loss import cls_metrics, rd_loss
+
+# The steps of one train_scanned / test_scanned call from which the card
+# takes mode="scan" when no mode is given: there a call's replays have
+# saved more against the loop than its eager first step and capture cost
+# (chip_smoke.py phase 7d on an H100 at full width: the graph paid from
+# 7.7-8.7 steps in train_scanned and 8.9-11.2 in test_scanned; PERF.md).
+SCAN_MIN_STEPS = 12
 
 
 def get_logger(logdir: str) -> logging.Logger:
@@ -63,9 +81,34 @@ def get_logger(logdir: str) -> logging.Logger:
 
 def make_optimizer(params, lr: float, weight_decay: float):
     """Adam with L2 weight decay added to the gradients (the JAX package's
-    add_decayed_weights -> scale_by_adam -> scale(-lr))."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+    add_decayed_weights -> scale_by_adam -> scale(-lr)).
+
+    The lr is a 0-d tensor on the parameters' device, as optax's
+    inject_hyperparams holds it, written in place by `set_lr`.  On the
+    card the optimizer is capturable (its step counts live on the device),
+    so that a CUDA graph can hold its update."""
+    params = list(params)
+    dev = params[0].device
+    return torch.optim.Adam(params, lr=torch.tensor(float(lr), device=dev),
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay,
+                            capturable=dev.type == "cuda")
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Write `lr` into the optimizer's lr tensors, in place: a captured
+    update reads them at every replay."""
+    for group in optimizer.param_groups:
+        group["lr"].fill_(lr)
+
+
+def reset_optimizer(optimizer: torch.optim.Optimizer) -> None:
+    """Zero the moments and step counts in place: the state a new
+    optimizer starts from (the JAX package's tx.init), in the tensors a
+    captured update holds."""
+    for state in optimizer.state.values():
+        for v in state.values():
+            v.zero_()
 
 
 def save_params(path: str, model: torch.nn.Module) -> None:
@@ -85,7 +128,8 @@ class Trainer:
 
     plan: BlockPlan sized for the training batch; capacity: padded voxel
     rows of one collated batch.  Runs on the card unless `device` asks for
-    the CPU, and raises when no card is present."""
+    the CPU, and raises when no card is present.  `graph_replays` counts
+    the steps that mode="scan" ran as replays of a captured CUDA graph."""
 
     def __init__(
         self,
@@ -123,6 +167,7 @@ class Trainer:
         self.record_set: Dict[str, List] = {
             "bce": [], "bces": [], "bpp": [], "sum_loss": [], "metrics": []
         }
+        self.graph_replays = 0
 
     def _new_optimizer(self):
         return make_optimizer(self.model.parameters(), self.lr,
@@ -142,17 +187,35 @@ class Trainer:
     def step(self, coords: torch.Tensor, valid: torch.Tensor):
         """One training step on a collated batch at the current lr: (the
         rd_loss terms, [3 scales, precision / recall / IoU], dropped)."""
+        set_lr(self.optimizer, self.lr)
+        return self._step(coords, valid)
+
+    def _step(self, coords: torch.Tensor, valid: torch.Tensor):
+        """`step` at the lr the optimizer holds."""
         out = self.model(coords, valid, self.plan, training=True,
                          generator=self.generator)
         d = rd_loss(out, self.config.alpha, self.config.beta, "train")
         mets = self._metrics(out)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr
         self.optimizer.zero_grad(set_to_none=True)
         d["loss"].backward()
         self.optimizer.step()
         return ({k: v.detach() for k, v in d.items()}, mets,
                 out["out"].dropped)
+
+    def _train_row(self, coords: torch.Tensor, valid: torch.Tensor):
+        """`_step`, packed into one row [bce, bpp, n_drop, bces...,
+        metrics...]."""
+        d, mets, n_drop = self._step(coords, valid)
+        return torch.cat([torch.stack([d["bce"], d["bpp"], n_drop.float()]),
+                          d["bces"], mets.reshape(-1)])
+
+    def _test_row(self, coords: torch.Tensor, valid: torch.Tensor):
+        """The evaluation of one batch, packed into one row [bce, bpp,
+        bces..., metrics...]."""
+        out = self.model(coords, valid, self.plan, training=False)
+        d = rd_loss(out, self.config.alpha, self.config.beta, "test")
+        return torch.cat([torch.stack([d["bce"], d["bpp"]]), d["bces"],
+                          self._metrics(out).reshape(-1)])
 
     # --- bookkeeping --------------------------------------------------------
 
@@ -197,9 +260,23 @@ class Trainer:
         state = torch.load(path, map_location="cpu", weights_only=True)
         self.model.load_state_dict(state["model"])
         self.optimizer = self._new_optimizer()
+        own = [{k: v for k, v in group.items() if k != "params"}
+               for group in self.optimizer.param_groups]
         self.optimizer.load_state_dict(state["optimizer"])
+        # load_state_dict takes the file's group settings; keep this
+        # trainer's (capturable on the card only, the lr its own tensor),
+        # so that a state written on either device resumes on the other,
+        # and keep each step count where that Adam keeps it
+        for group, settings in zip(self.optimizer.param_groups, own):
+            group.update(settings)
+            for p in group["params"]:
+                s = self.optimizer.state.get(p, {})
+                if "step" in s:
+                    s["step"] = s["step"].to(
+                        p.device if group["capturable"] else "cpu")
         self.epoch = int(state["epoch"])
         self.lr = float(state["lr"])
+        set_lr(self.optimizer, self.lr)
         self.generator.set_state(state["rng"])
 
     # --- loops --------------------------------------------------------------
@@ -219,7 +296,7 @@ class Trainer:
                 continue
             coords, valid = self._collate(coords_list)
             if batch_step == 0 and self.config.reset_optimizer_each_epoch:
-                self.optimizer = self._new_optimizer()
+                reset_optimizer(self.optimizer)
             d, mets, n_drop = self.step(coords, valid)
             n_steps += 1
             if int(n_drop):
@@ -276,24 +353,97 @@ class Trainer:
                 row[first + 3:].reshape(3, -1))
 
     @staticmethod
-    def _check_mode(mode: str) -> None:
-        if mode == "scan":
-            raise ValueError(
-                "mode='scan' (the JAX package's one lax.scan dispatch per "
-                "epoch) has no PyTorch counterpart; use mode='loop'")
-        if mode != "loop":
-            raise ValueError(f"unknown mode {mode!r}")
+    def _check_mode(mode: Optional[str]) -> None:
+        if mode not in (None, "loop", "scan"):
+            raise ValueError(f"unknown mode {mode!r} (loop or scan)")
+
+    def _pick_mode(self, mode: Optional[str], n_steps: int) -> str:
+        """The mode asked for; with none, the graph on the card from
+        SCAN_MIN_STEPS steps on, where its replays have saved more than
+        its eager first step and capture cost, else the loop."""
+        if mode is not None:
+            return mode
+        return ("scan" if self.device.type == "cuda"
+                and n_steps >= SCAN_MIN_STEPS else "loop")
+
+    def _run(self, fn, coords_all: torch.Tensor, valid_all: torch.Tensor,
+             mode: str) -> np.ndarray:
+        """fn(coords, valid) -> one row, over the stacked batches; the rows
+        fetched in one copy at the end.
+
+        mode="loop" calls fn on each batch.  mode="scan" copies each batch
+        into one pair of input buffers and calls fn on those: on the card
+        the first call runs eagerly on a side stream (the warm-up that a
+        capture needs, and the epoch's first step), the second is captured
+        (`_capture`) and every later batch replays the graph, its row
+        copied out on the device; on the CPU every call runs eagerly."""
+        if mode == "loop":
+            rows = [fn(c, v) for c, v in zip(coords_all, valid_all)]
+            return torch.stack(rows).cpu().numpy()
+        n = len(coords_all)
+        static = (torch.empty_like(coords_all[0]),
+                  torch.empty_like(valid_all[0]))
+
+        def load(i):
+            static[0].copy_(coords_all[i])
+            static[1].copy_(valid_all[i])
+
+        if self.device.type != "cuda":
+            rows = []
+            for i in range(n):
+                load(i)
+                rows.append(fn(*static))
+            return torch.stack(rows).cpu().numpy()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            load(0)
+            first = fn(*static)
+            rows = first.new_empty((n, first.numel()))
+            rows[0] = first
+        main.wait_stream(side)
+        if n == 1:
+            return rows.cpu().numpy()
+        try:
+            graph, row = self._capture(fn, static, side)
+            for i in range(1, n):
+                load(i)
+                graph.replay()
+                self.graph_replays += 1
+                rows[i] = row
+            return rows.cpu().numpy()
+        finally:
+            # the casts cached at capture live in the graph's memory
+            forget_casts(self.model)
+
+    def _capture(self, fn, static, stream):
+        """fn(*static) captured as one CUDA graph on `stream`: (the graph,
+        its output row, which every replay overwrites).  Every layer's
+        cast is forgotten first, so that the graph records the casts and
+        packs and redoes them from the parameters at each replay; the
+        trainer's generator is registered, so that each replay draws the
+        next numbers and advances it as an eager step would.  A capture
+        that fails raises."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        forget_casts(self.model)
+        with torch.cuda.graph(graph, stream=stream):
+            row = fn(*static)
+        return graph, row
 
     def train_scanned(self, batches: Sequence[Sequence[np.ndarray]],
-                      mode: str = "loop"):
+                      mode: Optional[str] = None):
         """One epoch over `batches` (lists of [N, 3] coords) with one
         host-to-device copy and one packed fetch: oversized batches are
         skipped on the host, every kept one is collated to the one plan,
         the stack is copied to the device at once, the steps run with
-        nothing fetched inside the loop, and [bce, bpp, n_drop, bces...]
-        and the metrics of every step come back in one copy at the end.
-        The lr schedule, optimizer reset, records and checkpoint are
-        `train`'s.  mode="scan" raises (no PyTorch counterpart)."""
+        nothing fetched between them, and [bce, bpp, n_drop, bces...] and
+        the metrics of every step come back in one copy at the end.  The
+        lr schedule, optimizer reset, records and checkpoint are
+        `train`'s.  mode="loop" runs the steps one by one; mode="scan"
+        replays one captured CUDA graph per step on the card (`_run`);
+        with no mode, `_pick_mode` chooses from the kept batches."""
         self._check_mode(mode)
         self.logger.info("=" * 40 + f"\nTraining Epoch: {self.epoch}")
         if self.epoch > 0 and self.epoch % self.config.lr_halve_every == 0:
@@ -302,16 +452,11 @@ class Trainer:
         if stacked is None:
             self.epoch += 1
             return
-        coords_all, valid_all = stacked
         if self.config.reset_optimizer_each_epoch:
-            self.optimizer = self._new_optimizer()
-        rows = []
-        for coords, valid in zip(coords_all, valid_all):
-            d, mets, n_drop = self.step(coords, valid)
-            rows.append(torch.cat([
-                torch.stack([d["bce"], d["bpp"], n_drop.float()]),
-                d["bces"], mets.reshape(-1)]))
-        rows = torch.stack(rows).cpu().numpy()  # the one fetch
+            reset_optimizer(self.optimizer)
+        set_lr(self.optimizer, self.lr)
+        rows = self._run(self._train_row, *stacked,
+                         self._pick_mode(mode, len(stacked[0])))
         for n_drop in rows[:, 2]:
             if n_drop:
                 self.logger.warning(
@@ -325,23 +470,18 @@ class Trainer:
         self.epoch += 1
 
     def test_scanned(self, batches: Sequence[Sequence[np.ndarray]],
-                     tag: str = "Test", mode: str = "loop"):
+                     tag: str = "Test", mode: Optional[str] = None):
         """`test` over the batches that fit, with one host-to-device copy
-        and one packed fetch.  mode="scan" raises, as in
-        `train_scanned`."""
+        and one packed fetch; mode="scan" captures the evaluation forward
+        and replays it per batch, as in `train_scanned`."""
         self._check_mode(mode)
         stacked = self._stacked(batches)
         if stacked is None:
             return
-        rows = []
         with torch.no_grad():
-            for coords, valid in zip(*stacked):
-                out = self.model(coords, valid, self.plan, training=False)
-                d = rd_loss(out, self.config.alpha, self.config.beta, "test")
-                rows.append(torch.cat([
-                    torch.stack([d["bce"], d["bpp"]]), d["bces"],
-                    self._metrics(out).reshape(-1)]))
-        self._record_rows(torch.stack(rows).cpu().numpy(), first=2)
+            rows = self._run(self._test_row, *stacked,
+                             self._pick_mode(mode, len(stacked[0])))
+        self._record_rows(rows, first=2)
         self.record(tag, self.epoch)
 
     def test(self, batches: Iterable[Sequence[np.ndarray]],

@@ -384,6 +384,40 @@ def test_adam_matches_the_optax_chain():
     assert np.abs(tp.detach().numpy() - p0).max() > 1e-3
 
 
+def test_adam_lr_in_place_and_reset_match_optax():
+    """The lr written in place between steps (set_lr) against optax's
+    injected lr, and the state zeroed in place (reset_optimizer) against
+    tx.init, as an epoch boundary does: 2 steps, a reset and a new lr,
+    2 more steps, within 1e-7."""
+    rng = np.random.RandomState(1)
+    p0 = (rng.randn(64) * 0.1).astype(np.float32)
+    grads = [(rng.randn(64) * 0.01).astype(np.float32) for _ in range(4)]
+    lrs, wd = (8e-4, 8e-4, 4e-4, 4e-4), 1e-4
+    tx = JT.make_optimizer(wd)
+    jp = {"w": jnp.asarray(p0)}
+    state = tx.init(jp)
+    tp = torch.nn.Parameter(_t(p0.copy()))
+    opt = TT.make_optimizer([tp], 1.0, wd)
+    lr_t = opt.param_groups[0]["lr"]
+    assert torch.is_tensor(lr_t) and lr_t.dim() == 0
+    for i, (g, lr) in enumerate(zip(grads, lrs)):
+        if i == 2:
+            state = tx.init(jp)
+            TT.reset_optimizer(opt)
+            assert all(float(v.abs().max()) == 0
+                       for v in opt.state[tp].values())
+        state.hyperparams["lr"] = jnp.asarray(lr, jnp.float32)
+        TT.set_lr(opt, lr)
+        assert opt.param_groups[0]["lr"] is lr_t
+        upd, state = tx.update({"w": jnp.asarray(g)}, state, jp)
+        jp = jax.tree.map(lambda a, b: a + b, jp, upd)
+        tp.grad = _t(g)
+        opt.step()
+        np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp["w"]),
+                                   rtol=0, atol=1e-7, err_msg=f"step {i}")
+    assert int(opt.state[tp]["step"]) == 2
+
+
 def test_checkpoints_cross_both_ways(jax_step, tmp_path):
     """The port's weights-only file is flax's bytes and JAX's load_params
     reads it into its template; the port reads a JAX-written file."""
@@ -585,16 +619,6 @@ def test_train_scanned_matches_the_loop(tmp_path):
     names = sorted(os.listdir(loop.ckptdir))
     assert names == sorted(os.listdir(scan.ckptdir)) == ["epoch_0.ckpt",
                                                           "epoch_1.ckpt"]
-
-
-@pytest.mark.parametrize("fn", ["train_scanned", "test_scanned"])
-def test_scanned_mode_scan_raises(tmp_path, fn):
-    """The JAX package's mode="scan" (one lax.scan dispatch per epoch) has
-    no PyTorch counterpart: it raises, before any step."""
-    tr = _trainer(tmp_path, f"m{fn}")
-    with pytest.raises(ValueError, match="scan"):
-        getattr(tr, fn)(_batches(1), mode="scan")
-    assert tr.epoch == 0
 
 
 def test_train_scanned_with_nothing_that_fits(tmp_path):
