@@ -7,7 +7,10 @@
     python3 chip_smoke.py --phases 1,9 # 8^3 blocks (PCGC_BLOCK_SIZE=8)
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. card identity (nvidia-smi name and power limit); TF32 off.
+  1. card identity (nvidia-smi name and power limit); TF32 off; beside
+     the later phases, `cuobjdump -sass` of the built library: every f32
+     conv3_tc.cu instance holds the products its plan names (HGMMA for
+     wgmma, HMMA for mma.sync) and bulk copies (UBLKCP).
   2. conv3: the routed CUDA kernel (conv3_tc.cu on the tensor cores, at
      every shape of the main path) and the CUDA-core kernel conv3.cu, each
      against conv3_plain at every (nb_cap, ci, co) of the vox10 main path,
@@ -203,6 +206,10 @@ TRAIN_LAUNCHES = (127, 127, 63, 63, 64)
 # (2^-9 relative) after sums in another order.
 TRAIN_TOL = {"dw": {"float32": 1e-4, "bfloat16": 1e-4},
              "dx": {"float32": 1e-4, "bfloat16": 2e-2}}
+# the f32 design of conv3_tc.cu, as the kernels line names it
+F32_ROUTE = ("3xTF32, weights staged in shared memory by TMA bulk copies "
+             "(producer warp, mbarrier ring); wgmma m64nNk8 at max(co, 8) "
+             ">= 32, mma.sync m16n8k8 below")
 # forward launches of a path checked on their own inputs (spy_forward)
 # against f32 conv3_plain, max abs error over max |ref|: dX's tolerances,
 # since dX is this kernel (the bf16 one is phase 2's TOL_BF16_REL)
@@ -220,6 +227,70 @@ def log(*a):
     if OUT_DIR.is_dir():
         with open(OUT_DIR / "chip_smoke.log", "a") as f:
             print(*a, file=f)
+
+
+def f32_sass(lib) -> dict:
+    """The built library's f32 conv3_tc.cu instances, by "ci/co/bs": how
+    many HGMMA (wgmma), HMMA (mma.sync) and UBLKCP (bulk copy) instructions
+    `cuobjdump -sass` finds in each (both __launch_bounds__ variants
+    summed), and the seconds it took."""
+    import re
+
+    t0 = time.perf_counter()
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    out, key = {}, None
+    # grep keeps the few lines read here, in a process of its own
+    with subprocess.Popen([tool, "-sass", str(lib)],
+                          stdout=subprocess.PIPE) as p:
+        lines = subprocess.run(
+            ["grep", "-E", "Function :|HGMMA|HMMA|UBLKCP"], stdin=p.stdout,
+            capture_output=True, text=True).stdout.splitlines()
+        p.stdout.close()
+    for line in lines:
+        if "Function :" in line:
+            m = re.search(r"conv3_tc_kernel_f32(?:_fit)?ILi(\d+)ELi(\d+)"
+                          r"ELi(\d+)E", line)
+            key = "/".join(m.groups()) if m else None
+            if key:
+                out.setdefault(key, {"HGMMA": 0, "HMMA": 0, "UBLKCP": 0})
+        elif key:
+            for op in ("HGMMA", "HMMA", "UBLKCP"):
+                out[key][op] += f" {op}." in line or f" {op} " in line
+    if p.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass failed on {lib}")
+    return {"instances": out, "seconds": time.perf_counter() - t0}
+
+
+def check_f32_sass(lib) -> None:
+    """`f32_sass` of the built library against the plans: every f32
+    instance of conv3_tc.cu holds HGMMA and no HMMA where its plan says
+    wgmma, HMMA where mma.sync, and UBLKCP; logs the counts, raises on a
+    difference."""
+    import torch
+
+    from pcgcv2_torch.ops import conv3 as K
+
+    sass = f32_sass(lib)
+    ops = sass["instances"]
+    bad = []
+    for key, v in sorted(ops.items()):
+        ci, co, bs = map(int, key.split("/"))
+        want = K.tc_plan(ci, co, torch.float32, bs=bs).mma
+        if (want == "wgmma") != (v["HGMMA"] > 0 and v["HMMA"] == 0) \
+                or v["UBLKCP"] == 0:
+            bad.append((key, want, v))
+    log(f"phase 1, cuobjdump -sass: {len(ops)} f32 conv3_tc.cu instances, "
+        f"HGMMA (wgmma) in {sum(v['HGMMA'] > 0 for v in ops.values())}, "
+        f"HMMA (mma.sync) in {sum(v['HMMA'] > 0 for v in ops.values())}, "
+        f"UBLKCP (bulk copy) in {sum(v['UBLKCP'] > 0 for v in ops.values())}"
+        f", as planned in {len(ops) - len(bad)} ({sass['seconds']:.1f} s); "
+        "HGMMA / HMMA per instance ci/co/bs: " + ", ".join(
+            f"{k} {v['HGMMA']}/{v['HMMA']}" for k, v in sorted(ops.items())))
+    n_tc = sum(len(K.TC_PAIRS[bs]) for bs in K.BLOCK_SIDES)
+    if bad or len(ops) != n_tc:
+        raise AssertionError(f"f32 conv3_tc.cu instances against their plans "
+                             f"({len(ops)} of {n_tc} found): {bad}")
 
 
 def card_identity() -> str:
@@ -367,7 +438,10 @@ def phase_kernels(device):
             bound = max(bytes_ms, ops_ms)
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             dense_flop = 2.0 * 27 * ci * co * B.VOL * int(base.count)
+            plan, note = (plan_note(ci, co, cd, int(base.count))
+                          if kernel == "tc" else ({}, ""))
             row[dtype] = {
+                **plan,
                 "route": kernel,
                 "max_abs_err": err, "simt_max_abs_err": simt_err,
                 "max_abs_ref": scale, "ok": ok,
@@ -384,7 +458,7 @@ def phase_kernels(device):
                 f"(conv3.cu {simt_ms:.4f} ms, err {simt_err:.3g})  "
                 f"plain {plain_ms:.4f} ms  F.conv3d(halo) {lib_ms:.4f} ms  "
                 f"bound {bound:.4f} ms ({bound_by})  "
-                f"dense {row[dtype]['dense_tflops']:.2f} TFLOP/s")
+                f"dense {row[dtype]['dense_tflops']:.2f} TFLOP/s  {note}")
             if not ok:
                 raise AssertionError(
                     f"conv3 kernels disagree with conv3_plain at nb={nb_cap} "
@@ -403,6 +477,21 @@ def phase_kernels(device):
                 f"ms)  plain {tot['plain_ms']:.3f} ms  F.conv3d(halo) "
                 f"{tot['library_ms']:.3f} ms  bound {tot['bound_ms']:.4f} ms")
     return rows
+
+
+def plan_note(ci: int, co: int, cd, live_rows: int) -> tuple:
+    """(dict, text) of the tensor-core plan of a shape: the weight bytes a
+    launch reads from L2 as `tc_plan` counts them (bf16: every warp per
+    output plane; f32: the CTA, once or per step of its planes), and the
+    dynamic shared memory of a CTA (planes, f32 weights, mbarriers)."""
+    from pcgcv2_torch.ops import conv3 as K
+
+    p = K.tc_plan(ci, co, cd)
+    l2 = p.l2_weight_bytes(live_rows, ci, co, cd)
+    where = {0: "L2 per warp", 1: "smem whole"}.get(
+        p.wslots, f"smem ring of {p.wslots}")
+    return ({"l2_weight_bytes": l2, "smem": p.smem, "wslots": p.wslots},
+            f"weights {where}: L2 {l2 / 1e9:.3f} GB, smem {p.smem} B")
 
 
 def per_frame_sum(rows, path: str, dtype: str, key: str) -> float:
@@ -531,10 +620,12 @@ def empty_tiles(coder, cloud) -> dict:
     encode + decode, from the masks with plain torch: per m16 tile (16
     consecutive (y, z) voxels of an x-plane: one row of 16 z at BS = 16,
     two rows of 8 at BS = 8), per warp tile (two m16 tiles: the kernel
-    skips its MMAs) and per CTA (4 x-planes at BS = 16, the whole block at
-    BS = 8: the kernel skips staging too; the f32 ci = 64 CTAs of 16^3
-    blocks cover half of that), over the live rows; each also weighted by
-    the call's dense work 27*ci*co."""
+    skips its MMAs), per warpgroup tile (128 consecutive voxels: an f32
+    instance on wgmma, max(co, 8) >= 32, skips its products only where all
+    are empty) and per CTA (4 x-planes at BS = 16, the whole block at BS =
+    8: the kernel skips staging too; the f32 ci = 64 CTAs of 16^3 blocks
+    cover half of that), over the live rows; each also weighted by the
+    call's dense work 27*ci*co."""
     import torch
 
     from pcgcv2_torch.models import layers
@@ -542,7 +633,8 @@ def empty_tiles(coder, cloud) -> dict:
     from pcgcv2_torch.ops import conv3 as K
 
     real = layers.conv3
-    tally = {k: [0, 0, 0.0, 0.0] for k in ("m16", "warp32", "cta")}
+    tally = {k: [0, 0, 0.0, 0.0]
+             for k in ("m16", "warp32", "wg128", "cta")}
 
     def spy(bg, nbrs, weight, bias=None, compute_dtype=None, packed=None,
             **kw):
@@ -554,6 +646,7 @@ def empty_tiles(coder, cloud) -> dict:
             xp = K.tc_plan(ci, co, cd).xp
             for name, occ in (("m16", m.reshape(n, B.BS, -1, 16).any(-1)),
                               ("warp32", m.reshape(n, B.BS, -1, 32).any(-1)),
+                              ("wg128", m.reshape(n, -1, 128).any(-1)),
                               ("cta", m.reshape(n, B.BS // xp, -1).any(-1))):
                 empty = occ.numel() - int(occ.sum())
                 t = tally[name]
@@ -1923,7 +2016,7 @@ def train_kernel_entries(train) -> list:
     out = []
     for name, prefix, source, how, lib in (
             ("conv3_dgrad", "dx", "pcgcv2_torch/csrc/conv3_tc.cu",
-             "tc (conv3_tc.cu on flip_weight(W), mma.sync {})",
+             "tc (conv3_tc.cu on flip_weight(W), {})",
              "torch.nn.grad.conv3d_input (cuDNN) on the live rows' halo"),
             ("conv3_wgrad", "dw", "pcgcv2_torch/csrc/conv3_wgrad.cu",
              "conv3_wgrad.cu (CUDA cores, f32 FMA; one pass per live row "
@@ -1935,9 +2028,12 @@ def train_kernel_entries(train) -> list:
             # no Pallas original: XLA's VJP of blocks.conv3
             "replaces": "pcgcv2_tpu/ops/blocks.py:656",
             **entry(prefix, "float32"), "dtype": "float32",
-            "kernel_route": how.format("3xTF32" if prefix == "dx" else "f32"),
+            "kernel_route": how.format(F32_ROUTE if prefix == "dx"
+                                       else "f32"),
             "bfloat16": {**entry(prefix, "bfloat16"), "source": source,
-                         "kernel_route": how.format("bf16")},
+                         "kernel_route": how.format(
+                             "mma.sync bf16" if prefix == "dx"
+                             else "bf16")},
             "library": lib, "per": "training step",
         })
     return out
@@ -2602,7 +2698,8 @@ def bs8_frame_kernels(device, workdir: str, card: str) -> dict:
                 f"  {r['route']} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
                 f"  F.conv3d(halo) {r['library_ms']:.4f}  bound "
                 f"{r['bound_ms']:.4f} ({r['bytes_ms']:.4f} bytes / "
-                f"{r['ops_ms']:.4f} ops)")
+                f"{r['ops_ms']:.4f} ops)  "
+                f"{plan_note(key[1], key[2], B._DTYPES[dtype], r['live_rows'])[1]}")
         tot = {k: sum(r["launches"] * r[k] for r in shapes.values())
                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "bytes_ms", "ops_ms")}
@@ -2812,6 +2909,11 @@ def main(argv=None) -> int:
         for f in builds:
             log(f"built {f.result()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    # each f32 instance holds the products its plan names; the scan runs
+    # beside the phases and is read before the kernels line
+    sass_pool = ThreadPoolExecutor(1)
+    sass_check = (None if args.bs8_child else
+                  sass_pool.submit(check_f32_sass, builds[0].result()))
 
     log("== phase 1: card ==")
     card = card_identity()
@@ -2898,7 +3000,7 @@ def main(argv=None) -> int:
             "replaces": "pcgcv2_tpu/ops/pallas_conv.py:119",
             **entry("float32"),
             "dtype": "float32",
-            "kernel_route": "tc (conv3_tc.cu, mma.sync 3xTF32)",
+            "kernel_route": f"tc (conv3_tc.cu, {F32_ROUTE})",
             "bfloat16": {
                 **entry("bfloat16"),
                 "source": "pcgcv2_torch/csrc/conv3_tc.cu",
@@ -2928,6 +3030,9 @@ def main(argv=None) -> int:
         bs8 = bs8_kernel_entries(report["bs8"])
         for k in kernels:
             k["bs8"] = bs8[k["name"]]
+    if sass_check is not None:
+        sass_check.result()  # raises where an instance is not its plan's
+    sass_pool.shutdown()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

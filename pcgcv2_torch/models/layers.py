@@ -95,8 +95,9 @@ class BConv3(_Weighted):
         return None
 
     def packed(self):
-        """The cast kernel in mma fragment order (in f32, split into its
-        TF32 hi and lo parts) where the tensor-core conv3 takes it (ci and
+        """The cast kernel as the tensor-core conv3 takes it (`pack_weight`:
+        bf16 in mma fragment order, f32 split into its TF32 hi and lo parts
+        in the kernel's shared-memory layout) where it runs there (ci and
         co in {1, 4, 8, 16, 32, 64}), else None."""
         self.weights()
         return self._prepared

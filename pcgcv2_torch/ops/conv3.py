@@ -15,13 +15,15 @@ picks the kernel by shape:
   at BS = 8 the (ci, co) pairs of the full-width model and of its input
   gradients (`TC_PAIRS`).  That is every call of the main path, in bf16
   and in f32.  An implicit GEMM on
-  the tensor cores (mma.sync: bf16 m16n8k16 / m16n8k8; f32 as three
-  m16n8k8 TF32 products of split operands, 3xTF32, which keeps f32
-  accuracy): each CTA stages the input planes of one block row with
-  cp.async and feeds ldmatrix from them; the weights come pre-packed (and,
-  in f32, pre-split) in fragment order (`pack_weight`, done once per layer
-  by models/layers.py).  Output tiles without an occupied slot skip the
-  arithmetic.
+  the tensor cores: each CTA stages the input planes of one block row
+  with cp.async and feeds ldmatrix from them; the weights come pre-packed
+  (`pack_weight`, done once per layer by models/layers.py).  bf16:
+  mma.sync m16n8k16 / m16n8k8, every warp reading its B fragments from
+  L2.  f32: three TF32 products of split operands (3xTF32, which keeps f32
+  accuracy) on wgmma m64nNk8 where max(co, 8) >= 32, else on mma.sync
+  m16n8k8; the pre-split weights sit in shared memory, copied there by a
+  producer warp with TMA bulk copies, whole or step by step (`tc_plan`).
+  Output tiles without an occupied slot skip the arithmetic.
 * "simt", csrc/conv3.cu: any other ci (co must still be one of the six).
   f32 FMA on the CUDA cores, one CTA per (block row, output x-plane).  It
   is no longer on the main path and stays as the comparison kernel, for
@@ -66,6 +68,8 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -138,7 +142,7 @@ def build(verbose: bool = False) -> Path:
     clobber each other's half-written files (each writes private temp
     files, then renames).  Neither depends on PCGC_BLOCK_SIZE: a process
     of either block side loads the library the other built.  `verbose`
-    prints nvcc's `-Xptxas -v` report."""
+    prints each unit's seconds and nvcc's `-Xptxas -v` report."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in _SRCS:
         h.update(src.read_bytes())
@@ -158,19 +162,23 @@ def build(verbose: bool = False) -> Path:
         srcs.append(src)
         objs.append(src.with_suffix(".o"))
     ptxas = ["-Xptxas", "-v"] if verbose else []
-    procs = [subprocess.Popen([_nvcc(), *ptxas, *_NVCC_FLAGS, "-I",
-                               str(_CSRC), "-c", "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True)
-             for src, obj in zip(srcs, objs)]
-    errs = [p.communicate()[1] for p in procs]  # waits for all
+
+    def compile_unit(src, obj):  # (process, seconds)
+        t0 = time.perf_counter()
+        r = subprocess.run([_nvcc(), *ptxas, *_NVCC_FLAGS, "-I", str(_CSRC),
+                            "-c", "-o", str(obj), str(src)],
+                           capture_output=True, text=True)
+        return r, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(srcs)) as ex:  # one nvcc per unit, together
+        done = list(ex.map(compile_unit, srcs, objs))
     for src in srcs:
         src.unlink(missing_ok=True)
-    for (name, _), p, err in zip(todo, procs, errs):
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name}:\n{err}")
+    for (name, _), (r, sec) in zip(todo, done):
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {name}:\n{r.stderr}")
         if verbose:
-            print(f"nvcc {name}:\n{err}", flush=True)
+            print(f"nvcc {name} ({sec:.1f} s):\n{r.stderr}", flush=True)
     tmp = lib.with_suffix(f".{pid}.tmp")
     r = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
                         *map(str, objs)], capture_output=True, text=True)
@@ -295,41 +303,118 @@ def route(ci: int, co: int, dtype, bs: Optional[int] = None) -> str:
 
 class TcPlan(NamedTuple):
     """How csrc/conv3_tc.cu tiles one (ci, co, dtype, block side) instance
-    (its `Cfg` computes the same; the launch checks xp, rows and smem)."""
+    (its `Cfg` / `CfgF` compute the same; the launch checks xp, rows, smem,
+    ps and wslots)."""
 
     xp: int       # output x-planes per CTA
     rows: int     # output y rows per CTA
-    threads: int  # one per (y, z) voxel of those rows
-    smem: int     # dynamic shared memory: a ring of 4 staged planes
+    threads: int  # one per (y, z) voxel of `ps` planes of those rows (f32:
+    #               and a producer warp beside them)
+    smem: int     # dynamic shared memory: the plane ring, f32 weights, bars
     grid: tuple   # CTAs per block row: (x slabs, y-halves)
+    ps: int       # output planes per step (f32 at 8^3: 2)
+    wslots: int   # f32 weights in shared memory: 1 = the whole packed
+    #               kernel once per CTA, k >= 2 = a ring of k one-step
+    #               slices refilled per step; 0 (bf16) = read from L2
+    kg: int       # f32: k8 chunks per step (a step: one (dx, dz) and kg)
+    mma: str      # the product instruction: "wgmma" or "mma.sync"
+    weight_reads: int  # times a live row's CTAs read the packed weight
+    #                    from L2: per warp and plane (bf16), per CTA
+    #                    (f32, whole) or per CTA and step (f32, streamed)
+
+    def l2_weight_bytes(self, live_rows: int, ci: int, co: int,
+                        dtype) -> int:
+        """Weight bytes a launch over `live_rows` rows reads from L2."""
+        return live_rows * self.weight_reads * packed_bytes(ci, co, dtype)
 
 
 TC_SMEM_MAX = 232448 - 256  # dynamic shared memory a CTA may use
+_TC_STEP_MAX = 12288  # weight bytes of an f32 step, at most
+
+
+def _tc_fit(smem: int, threads: int) -> int:
+    """CTAs per SM that `smem` bytes of dynamic shared memory (plus the 1
+    KB reserved per CTA and rows[]) and `threads` threads admit."""
+    return min(233472 // (smem + 1024 + 27 * 4), 2048 // threads)
+
+
+def _tc_keep_slots(ring: int, sb: int, nstep: int, threads: int,
+                   keep: int) -> int:
+    """conv3_tc.cu's `tc_keep_slots`: one-step weight slots (sb bytes and
+    two 8-byte mbarriers each), the most from 2 up to min(8, nstep) that
+    keep `keep` CTAs per SM beside the plane ring, or 0."""
+    ks = [k for k in range(2, min(8, nstep) + 1)
+          if ring + k * (sb + 16) <= TC_SMEM_MAX
+          and _tc_fit(ring + k * (sb + 16), threads) >= keep]
+    return max(ks, default=0)
+
+
+def _tc_kmax(kc: int, kb: int) -> int:
+    """The most k8 chunks of a tap (kb weight bytes each) within a step."""
+    g = kc
+    while g > 1 and g * kb > _TC_STEP_MAX:
+        g //= 2
+    return g
 
 
 def tc_plan(ci: int, co: int, dtype, bs: Optional[int] = None) -> TcPlan:
-    """conv3_tc.cu's tiling: staged voxels of max(ci, 8) channels, padded
+    """conv3_tc.cu's tiling.  Staged voxels of max(ci, 8) channels, padded
     by 16 bytes where a voxel is an even number of 16-byte groups; a ring
-    of 4 planes of (rows + 2) x (bs + 2) voxels; 16^3 blocks in slabs of 4
+    of planes of (rows + 2) x (bs + 2) voxels; 16^3 blocks in slabs of 4
     x-planes, split into y-halves where a full-plane ring does not fit,
-    8^3 blocks whole."""
-    del co  # the staging is the input's
+    8^3 blocks whole.
+
+    bf16: a ring of 4 planes, one output plane at a time, every warp
+    reading its weight fragments from L2.  f32: the CTA is whole
+    warpgroups and a producer warp; one step covers one output plane at
+    16^3 and two at 8^3 (a ring of 6 planes), so that every pass over the
+    weights serves 128 output voxels or more; the packed weight sits in
+    shared memory, whole where it fits without costing CTAs per SM (up to
+    2), else streamed through a ring of one-step slices, a step one (dx,
+    dz) and `kg` k8 chunks (finer where two slots would cost CTAs per SM);
+    the products on wgmma where max(co, 8) >= 32, else on mma.sync."""
     bs = bs or B.BS
-    sz = torch.empty((), dtype=dtype).element_size()
-    cip = max(ci, 8)
+    f32 = dtype == torch.float32
+    sz = 4 if f32 else 2
+    cip, cop = max(ci, 8), max(co, 8)
     rs = cip + (16 // sz if (cip * sz // 16) % 2 == 0 else 0)
     hs = bs + 2
-    ys = 2 if 4 * hs * hs * rs * sz > TC_SMEM_MAX else 1
+    ps = 2 if f32 and bs == 8 else 1
+    nbuf = 2 * ps + 2
+    ys = 2 if nbuf * hs * hs * rs * sz > TC_SMEM_MAX else 1
     rows = bs // ys
     xp = 4 if bs == 16 else 8
-    return TcPlan(xp, rows, rows * bs, 4 * (rows + 2) * hs * rs * sz,
-                  (bs // xp, ys))
+    threads = ps * rows * bs
+    ring = nbuf * (rows + 2) * hs * rs * sz
+    grid = (bs // xp, ys)
+    if not f32:
+        return TcPlan(xp, rows, threads, ring, grid, 1, 0, 0, "mma.sync",
+                      bs ** 3 // 32)
+    mma = "wgmma" if cop >= 32 else "mma.sync"
+    kc, kb = cip // 8, 3 * 2 * 8 * cop * 4
+    cta = threads + 32  # and the producer warp
+    keep = min(_tc_fit(ring, cta), 2)
+    wb = 27 * cip * cop * 8
+    if ring + wb + 8 <= TC_SMEM_MAX and _tc_fit(ring + wb + 8, cta) >= keep:
+        return TcPlan(xp, rows, threads, ring + wb + 8, grid, ps, 1,
+                      _tc_kmax(kc, kb), mma, grid[0] * grid[1])
+    kg = _tc_kmax(kc, kb)
+    while kg > 1 and not _tc_keep_slots(ring, kg * kb, 9 * kc // kg, cta,
+                                        keep):
+        kg //= 2
+    if not _tc_keep_slots(ring, kg * kb, 9 * kc // kg, cta, keep):
+        kg = _tc_kmax(kc, kb)  # no step keeps them: fewer CTAs per SM
+    sb, nstep = kg * kb, 9 * kc // kg
+    ns = (_tc_keep_slots(ring, sb, nstep, cta, keep)
+          or _tc_keep_slots(ring, sb, nstep, cta, 1))
+    return TcPlan(xp, rows, threads, ring + ns * (sb + 16), grid, ps, ns, kg,
+                  mma, grid[0] * grid[1] * xp // ps)
 
 
 def _tc_dims(ci: int, co: int, dtype) -> tuple:
     """(ci padded, co padded, mma depth) of the tensor-core kernel: ci and
-    co below 8 are zero-padded to 8; the depth is 8 in f32 (tf32 m16n8k8)
-    and 16 in bf16 (8 for ci <= 8)."""
+    co below 8 are zero-padded to 8; the depth is 8 in f32 (tf32 k8) and
+    16 in bf16 (8 for ci <= 8)."""
     cip, cop = max(ci, 8), max(co, 8)
     ks = 16 if dtype == torch.bfloat16 and cip >= 16 else 8
     return cip, cop, ks
@@ -338,8 +423,17 @@ def _tc_dims(ci: int, co: int, dtype) -> tuple:
 def packed_shape(ci: int, co: int, dtype) -> tuple:
     """Shape of `pack_weight`'s result for a [3, 3, 3, ci, co] kernel."""
     cip, cop, ks = _tc_dims(ci, co, dtype)
-    inner = (2, 2) if dtype == torch.float32 else (ks // 8, 2)
-    return (27, cip // ks, cop // 8, 8, 4, *inner)
+    if dtype == torch.float32:
+        return (3, 3, cip // 8, 3, 2, cop // 8, 2, 8, 4)
+    return (27, cip // ks, cop // 8, 8, 4, ks // 8, 2)
+
+
+def packed_bytes(ci: int, co: int, dtype) -> int:
+    """Bytes of `pack_weight`'s result: 27 max(ci, 8) max(co, 8) weights,
+    in f32 each as two parts."""
+    parts = 2 if dtype == torch.float32 else 1
+    return (27 * max(ci, 8) * max(co, 8) * parts
+            * torch.empty((), dtype=dtype).element_size())
 
 
 def tf32_split(x: torch.Tensor) -> tuple:
@@ -356,36 +450,52 @@ def tf32_split(x: torch.Tensor) -> tuple:
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
-    """[3, 3, 3, ci, co] -> the B operand of conv3_tc.cu in mma fragment
-    order; ci and co below 8 are zero-padded to 8.
+    """[3, 3, 3, ci, co] -> the B operand of conv3_tc.cu; ci and co below 8
+    are zero-padded to 8.
 
-    bf16: [27, ci/KS, co/8, 8, 4, KS/8, 2] (tap, k chunk, n tile, g, q, r,
-    e): lane 4g+q of n tile nt reads W[tap, KS*kc + 8r + 2q + e, 8nt + g]
-    as KS/8 bf16 pairs, KS the mma depth (16, or 8 for ci <= 8).
-    f32: [27, ci/8, co/8, 8, 4, 2, 2] (tap, k chunk, n tile, g, q, s, r):
-    lane 4g+q reads part s (0 = hi, 1 = lo, `tf32_split`) of
-    W[tap, 8kc + 4r + q, 8nt + g], the two B registers of tf32 m16n8k8 for
-    each part."""
+    bf16, in mma fragment order: [27, ci/KS, co/8, 8, 4, KS/8, 2] (tap, k
+    chunk, n tile, g, q, r, e): lane 4g+q of n tile nt reads
+    W[tap, KS*kc + 8r + 2q + e, 8nt + g] as KS/8 bf16 pairs, KS the mma
+    depth (16, or 8 for ci <= 8).
+
+    f32, the shared-memory image of the kernel's steps: [3, 3, ci/8, 3, 2,
+    co/8, 2, 8, 4] (dx, dz, k chunk, dy, part, n tile, k half, n, k) holds
+    part s (0 = hi, 1 = lo, `tf32_split`) of
+    W[dx, dy, dz, 8kc + 4h + k, 8nt + n].  A k8 chunk (dx, dz, kc) is one
+    contiguous slice of 3 x 2 K8 x co tiles, each the K-major layout of
+    8 x 4 core matrices (16-byte rows of one n, 4 k each) that wgmma's
+    descriptor and ldmatrix read: n tiles 256 bytes apart, k halves 128.
+    A step of the kernel (`tc_plan`'s kg chunks of one (dx, dz)) is one
+    bulk copy."""
     ci, co = weight.shape[3], weight.shape[4]
     cip, cop, ks = _tc_dims(ci, co, weight.dtype)
-    w = torch.nn.functional.pad(weight.reshape(27, ci, co),
-                                (0, cop - co, 0, cip - ci))
+    w = torch.nn.functional.pad(weight, (0, cop - co, 0, cip - ci))
     if weight.dtype == torch.float32:
-        w = torch.stack(tf32_split(w))  # [s, 27, cip, cop]
-        w = w.reshape(2, 27, cip // 8, 2, 4, cop // 8, 8)
-        return w.permute(1, 2, 5, 6, 4, 0, 3).contiguous()
+        w = torch.stack(tf32_split(w))  # [s, dx, dy, dz, cip, cop]
+        w = w.reshape(2, 3, 3, 3, cip // 8, 2, 4, cop // 8, 8)
+        #     s  dx dy dz kc h  k  nt n -> dx dz kc dy s nt h n k
+        return w.permute(1, 3, 4, 2, 0, 7, 5, 8, 6).contiguous()
     w = w.reshape(27, cip // ks, ks // 8, 4, 2, cop // 8, 8)
     return w.permute(0, 1, 5, 6, 3, 2, 4).contiguous()
+
+
+def unpack_parts(packed: torch.Tensor, ci: int, co: int) -> tuple:
+    """The f32 pack's parts (hi, lo), each [3, 3, 3, ci, co]."""
+    cip, cop, _ = _tc_dims(ci, co, torch.float32)
+    #        dx dz kc dy s nt h n k -> s dx dy dz kc h k nt n
+    w = packed.permute(4, 0, 3, 1, 2, 6, 8, 5, 7)
+    w = w.reshape(2, 3, 3, 3, cip, cop)[..., :ci, :co]
+    return w[0], w[1]
 
 
 def unpack_weight(packed: torch.Tensor, ci: int, co: int) -> torch.Tensor:
     """Inverse of `pack_weight`: the [3, 3, 3, ci, co] kernel (in f32, the
     sum hi + lo of its two parts)."""
-    cip, cop, _ = _tc_dims(ci, co, packed.dtype)
     if packed.dtype == torch.float32:
-        w = packed.sum(dim=5).permute(0, 1, 5, 4, 2, 3)
-    else:
-        w = packed.permute(0, 1, 5, 4, 6, 2, 3)
+        hi, lo = unpack_parts(packed, ci, co)
+        return hi + lo
+    cip, cop, _ = _tc_dims(ci, co, packed.dtype)
+    w = packed.permute(0, 1, 5, 4, 6, 2, 3)
     return w.reshape(27, cip, cop)[:, :ci, :co].reshape(3, 3, 3, ci, co)
 
 
@@ -465,17 +575,18 @@ def _run(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
     x = _aligned(bg.feats.to(cd), 16)
     nbrs = nbrs.contiguous()
     mask = _aligned(bg.mask, 4)
+    # the f32 weights go to shared memory by bulk copies of 16-byte pieces
+    wt = _aligned(packed, 16) if kernel == "tc" else weight
     out = torch.empty((nb, B.VOL, co), dtype=cd, device=dev)
     lib = _load()
     args = (x.data_ptr(), nbrs.data_ptr(), mask.data_ptr(),
-            bg.count.data_ptr(),
-            (packed if kernel == "tc" else weight).data_ptr(),
+            bg.count.data_ptr(), wt.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr())
     tail = (nb, ci, co, int(cd == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     if kernel == "tc":
         p = tc_plan(ci, co, cd)
-        sel = (ctypes.c_int * 3)(p.xp, p.rows, p.smem)
+        sel = (ctypes.c_int * 5)(p.xp, p.rows, p.smem, p.ps, p.wslots)
         rc = getattr(lib, f"pcgc_conv3_tc_bs{B.BS}")(
             *args, ctypes.addressof(sel), *tail)
     else:

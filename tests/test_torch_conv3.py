@@ -178,9 +178,11 @@ def test_pack_weight_roundtrip(ci, co, dtype):
                                    rtol=0, atol=0)
         assert int((packed != 0).sum()) == int((w != 0).sum())
         return
-    # f32: hi (part 0) is a TF32 value, its low 13 mantissa bits zero, and
-    # hi + lo gives the weight back within 2^-21 relative
-    hi = packed[..., 0, :]
+    # f32: hi (part 0) is a TF32 value, its low 13 mantissa bits zero, lo
+    # is hi's remainder rounded to TF32, and hi + lo gives the weight back
+    # within 2^-21 relative
+    hi, lo = TK.unpack_parts(packed, ci, co)
+    torch.testing.assert_close((hi, lo), TK.tf32_split(w), rtol=0, atol=0)
     assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
     torch.testing.assert_close(TK.unpack_weight(packed, ci, co), w,
                                rtol=2.0 ** -21, atol=0)
@@ -191,8 +193,10 @@ def test_pack_weight_roundtrip(ci, co, dtype):
 def test_pack_weight_fragment_order(ci, co, dtype):
     """bf16: lane 4g+q of n tile nt holds W[tap, KS*kc + 8r + 2q + e,
     8nt + g], the B fragment of mma.sync m16n8k{KS} (KS = 8 for ci = 8,
-    else 16).  f32: lane 4g+q holds part s (hi, lo) of
-    W[tap, 8kc + 4r + q, 8nt + g], the B fragment of tf32 m16n8k8."""
+    else 16).  f32: step (dx, dz, kc), tap dy, part s (hi, lo), n tile
+    nt, k half h, row n, column k holds part s of
+    W[dx, dy, dz, 8kc + 4h + k, 8nt + n]: the K-major core matrices of
+    the step's weights in shared memory."""
     g_ = torch.Generator().manual_seed(ci * co)
     w = torch.randn(3, 3, 3, ci, co, generator=g_).to(dtype)
     packed = TK.pack_weight(w)
@@ -206,8 +210,9 @@ def test_pack_weight_fragment_order(ci, co, dtype):
                        rng.randint(co // 8))
         g, q, r, e = (rng.randint(8), rng.randint(4), rng.randint(2),
                       rng.randint(2))
-        if f32:  # e is the part s
-            assert (packed[tap, kc, nt, g, q, e, r]
+        if f32:  # e is the part s, r the k half, g the row, q the column
+            dx, dy, dz = tap // 9, tap // 3 % 3, tap % 3
+            assert (packed[dx, dz, kc, dy, e, nt, r, g, q]
                     == parts[e, tap, 8 * kc + 4 * r + q, 8 * nt + g])
         else:
             r %= ks // 8
@@ -279,8 +284,8 @@ def test_layer_packs_once_per_dtype():
         assert packed32.dtype == torch.float32
         assert packed32.shape == TK.packed_shape(16, 32, torch.float32)
         # 0.5 is a TF32 value: hi holds it, lo is zero
-        assert bool((packed32[..., 0, :] == 0.5).all())
-        assert bool((packed32[..., 1, :] == 0).all())
+        hi, lo = TK.unpack_parts(packed32, 16, 32)
+        assert bool((hi == 0.5).all()) and bool((lo == 0).all())
     finally:
         TB.set_compute_dtype("float32")
 
