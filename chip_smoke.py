@@ -8,9 +8,9 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. card identity (nvidia-smi name and power limit); TF32 off; beside
-     the later phases, `cuobjdump -sass` of the built library: every f32
-     conv3_tc.cu instance holds the products its plan names (HGMMA for
-     wgmma, HMMA for mma.sync) and bulk copies (UBLKCP).
+     the later phases, `cuobjdump -sass` of the built library: every
+     conv3_tc.cu instance, f32 and bf16, holds the products its plan
+     names (HGMMA for wgmma, HMMA for mma.sync) and bulk copies (UBLKCP).
   2. conv3: the routed CUDA kernel (conv3_tc.cu on the tensor cores, at
      every shape of the main path) and the CUDA-core kernel conv3.cu, each
      against conv3_plain at every (nb_cap, ci, co) of the vox10 main path,
@@ -206,10 +206,14 @@ TRAIN_LAUNCHES = (127, 127, 63, 63, 64)
 # (2^-9 relative) after sums in another order.
 TRAIN_TOL = {"dw": {"float32": 1e-4, "bfloat16": 1e-4},
              "dx": {"float32": 1e-4, "bfloat16": 2e-2}}
-# the f32 design of conv3_tc.cu, as the kernels line names it
+# the design of conv3_tc.cu's f32 and bf16 instances, as the kernels line
+# names it
 F32_ROUTE = ("3xTF32, weights staged in shared memory by TMA bulk copies "
              "(producer warp, mbarrier ring); wgmma m64nNk8 at max(co, 8) "
              ">= 32, mma.sync m16n8k8 below")
+BF16_ROUTE = ("bf16, weights staged in shared memory by TMA bulk copies "
+              "(producer warp, mbarrier ring); wgmma m64nNk16 at co = 64 and "
+              "ci >= 16, mma.sync m16n8k16 (m16n8k8 at ci <= 8) below")
 # forward launches of a path checked on their own inputs (spy_forward)
 # against f32 conv3_plain, max abs error over max |ref|: dX's tolerances,
 # since dX is this kernel (the bf16 one is phase 2's TOL_BF16_REL)
@@ -229,11 +233,11 @@ def log(*a):
             print(*a, file=f)
 
 
-def f32_sass(lib) -> dict:
-    """The built library's f32 conv3_tc.cu instances, by "ci/co/bs": how
-    many HGMMA (wgmma), HMMA (mma.sync) and UBLKCP (bulk copy) instructions
-    `cuobjdump -sass` finds in each (both __launch_bounds__ variants
-    summed), and the seconds it took."""
+def tc_sass(lib) -> dict:
+    """The built library's conv3_tc.cu instances, by "dtype/ci/co/bs"
+    (dtype f32 or bf16): how many HGMMA (wgmma), HMMA (mma.sync) and
+    UBLKCP (bulk copy) instructions `cuobjdump -sass` finds in each (both
+    __launch_bounds__ variants summed), and the seconds it took."""
     import re
 
     t0 = time.perf_counter()
@@ -249,8 +253,8 @@ def f32_sass(lib) -> dict:
         p.stdout.close()
     for line in lines:
         if "Function :" in line:
-            m = re.search(r"conv3_tc_kernel_f32(?:_fit)?ILi(\d+)ELi(\d+)"
-                          r"ELi(\d+)E", line)
+            m = re.search(r"conv3_tc_kernel_(f32|bf16)(?:_fit)?ILi(\d+)ELi"
+                          r"(\d+)ELi(\d+)E", line)
             key = "/".join(m.groups()) if m else None
             if key:
                 out.setdefault(key, {"HGMMA": 0, "HMMA": 0, "UBLKCP": 0})
@@ -262,34 +266,40 @@ def f32_sass(lib) -> dict:
     return {"instances": out, "seconds": time.perf_counter() - t0}
 
 
-def check_f32_sass(lib) -> None:
-    """`f32_sass` of the built library against the plans: every f32
-    instance of conv3_tc.cu holds HGMMA and no HMMA where its plan says
-    wgmma, HMMA where mma.sync, and UBLKCP; logs the counts, raises on a
-    difference."""
+def check_tc_sass(lib) -> None:
+    """`tc_sass` of the built library against the plans: every instance
+    of conv3_tc.cu, f32 and bf16, holds HGMMA and no HMMA where its plan
+    says wgmma, HMMA where mma.sync, and UBLKCP; logs the counts per
+    dtype, raises on a difference."""
     import torch
 
     from pcgcv2_torch.ops import conv3 as K
 
-    sass = f32_sass(lib)
+    sass = tc_sass(lib)
     ops = sass["instances"]
     bad = []
     for key, v in sorted(ops.items()):
-        ci, co, bs = map(int, key.split("/"))
-        want = K.tc_plan(ci, co, torch.float32, bs=bs).mma
+        dt, ci, co, bs = key.split("/")
+        cd = torch.float32 if dt == "f32" else torch.bfloat16
+        want = K.tc_plan(int(ci), int(co), cd, bs=int(bs)).mma
         if (want == "wgmma") != (v["HGMMA"] > 0 and v["HMMA"] == 0) \
                 or v["UBLKCP"] == 0:
             bad.append((key, want, v))
-    log(f"phase 1, cuobjdump -sass: {len(ops)} f32 conv3_tc.cu instances, "
-        f"HGMMA (wgmma) in {sum(v['HGMMA'] > 0 for v in ops.values())}, "
-        f"HMMA (mma.sync) in {sum(v['HMMA'] > 0 for v in ops.values())}, "
-        f"UBLKCP (bulk copy) in {sum(v['UBLKCP'] > 0 for v in ops.values())}"
-        f", as planned in {len(ops) - len(bad)} ({sass['seconds']:.1f} s); "
-        "HGMMA / HMMA per instance ci/co/bs: " + ", ".join(
-            f"{k} {v['HGMMA']}/{v['HMMA']}" for k, v in sorted(ops.items())))
-    n_tc = sum(len(K.TC_PAIRS[bs]) for bs in K.BLOCK_SIDES)
+    for dt in ("f32", "bf16"):
+        mine = {k: v for k, v in ops.items() if k.startswith(dt + "/")}
+        log(f"phase 1, cuobjdump -sass: {len(mine)} {dt} conv3_tc.cu "
+            f"instances, HGMMA (wgmma) in "
+            f"{sum(v['HGMMA'] > 0 for v in mine.values())}, HMMA (mma.sync)"
+            f" in {sum(v['HMMA'] > 0 for v in mine.values())}, UBLKCP (bulk"
+            f" copy) in {sum(v['UBLKCP'] > 0 for v in mine.values())}, as "
+            f"planned in {len(mine) - sum(b[0] in mine for b in bad)} "
+            f"({sass['seconds']:.1f} s); HGMMA / HMMA per instance "
+            "ci/co/bs: " + ", ".join(
+                f"{k.split('/', 1)[1]} {v['HGMMA']}/{v['HMMA']}"
+                for k, v in sorted(mine.items())))
+    n_tc = 2 * sum(len(K.TC_PAIRS[bs]) for bs in K.BLOCK_SIDES)
     if bad or len(ops) != n_tc:
-        raise AssertionError(f"f32 conv3_tc.cu instances against their plans "
+        raise AssertionError(f"conv3_tc.cu instances against their plans "
                              f"({len(ops)} of {n_tc} found): {bad}")
 
 
@@ -480,18 +490,20 @@ def phase_kernels(device):
 
 
 def plan_note(ci: int, co: int, cd, live_rows: int) -> tuple:
-    """(dict, text) of the tensor-core plan of a shape: the weight bytes a
-    launch reads from L2 as `tc_plan` counts them (bf16: every warp per
-    output plane; f32: the CTA, once or per step of its planes), and the
-    dynamic shared memory of a CTA (planes, f32 weights, mbarriers)."""
+    """(dict, text) of the tensor-core plan of a shape: where the weights
+    sit (whole or a ring of one-step slots), the k chunks of a step, the
+    product instruction, the weight bytes a launch reads from L2 as
+    `tc_plan` counts them (the CTA, once or per step of its planes), and
+    the dynamic shared memory of a CTA (planes, weights, mbarriers)."""
     from pcgcv2_torch.ops import conv3 as K
 
     p = K.tc_plan(ci, co, cd)
     l2 = p.l2_weight_bytes(live_rows, ci, co, cd)
-    where = {0: "L2 per warp", 1: "smem whole"}.get(
-        p.wslots, f"smem ring of {p.wslots}")
-    return ({"l2_weight_bytes": l2, "smem": p.smem, "wslots": p.wslots},
-            f"weights {where}: L2 {l2 / 1e9:.3f} GB, smem {p.smem} B")
+    where = "smem whole" if p.wslots == 1 else f"smem ring of {p.wslots}"
+    return ({"l2_weight_bytes": l2, "smem": p.smem, "wslots": p.wslots,
+             "kg": p.kg, "mma": p.mma},
+            f"weights {where}, kg {p.kg}, {p.mma}: L2 {l2 / 1e9:.3f} GB, "
+            f"smem {p.smem} B")
 
 
 def per_frame_sum(rows, path: str, dtype: str, key: str) -> float:
@@ -620,9 +632,9 @@ def empty_tiles(coder, cloud) -> dict:
     encode + decode, from the masks with plain torch: per m16 tile (16
     consecutive (y, z) voxels of an x-plane: one row of 16 z at BS = 16,
     two rows of 8 at BS = 8), per warp tile (two m16 tiles: the kernel
-    skips its MMAs), per warpgroup tile (128 consecutive voxels: an f32
-    instance on wgmma, max(co, 8) >= 32, skips its products only where all
-    are empty) and per CTA (4 x-planes at BS = 16, the whole block at BS =
+    skips its MMAs), per warpgroup tile (128 consecutive voxels: an
+    instance on wgmma, `tc_plan(...).mma`, skips its products only where
+    all are empty) and per CTA (4 x-planes at BS = 16, the whole block at BS =
     8: the kernel skips staging too; the f32 ci = 64 CTAs of 16^3 blocks
     cover half of that), over the live rows; each also weighted by the
     call's dense work 27*ci*co."""
@@ -2032,8 +2044,7 @@ def train_kernel_entries(train) -> list:
                                        else "f32"),
             "bfloat16": {**entry(prefix, "bfloat16"), "source": source,
                          "kernel_route": how.format(
-                             "mma.sync bf16" if prefix == "dx"
-                             else "bf16")},
+                             BF16_ROUTE if prefix == "dx" else "bf16")},
             "library": lib, "per": "training step",
         })
     return out
@@ -2909,11 +2920,11 @@ def main(argv=None) -> int:
         for f in builds:
             log(f"built {f.result()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    # each f32 instance holds the products its plan names; the scan runs
-    # beside the phases and is read before the kernels line
+    # each conv3_tc.cu instance holds the products its plan names; the
+    # scan runs beside the phases and is read before the kernels line
     sass_pool = ThreadPoolExecutor(1)
     sass_check = (None if args.bs8_child else
-                  sass_pool.submit(check_f32_sass, builds[0].result()))
+                  sass_pool.submit(check_tc_sass, builds[0].result()))
 
     log("== phase 1: card ==")
     card = card_identity()
@@ -3004,7 +3015,7 @@ def main(argv=None) -> int:
             "bfloat16": {
                 **entry("bfloat16"),
                 "source": "pcgcv2_torch/csrc/conv3_tc.cu",
-                "kernel_route": "tc (conv3_tc.cu, mma.sync bf16)",
+                "kernel_route": f"tc (conv3_tc.cu, {BF16_ROUTE})",
             },
             "library": "F.conv3d on the assembled halo (dense part only)",
             "train_step_launches": report.get("train", {}).get(

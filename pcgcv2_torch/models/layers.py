@@ -96,9 +96,9 @@ class BConv3(_Weighted):
 
     def packed(self):
         """The cast kernel as the tensor-core conv3 takes it (`pack_weight`:
-        bf16 in mma fragment order, f32 split into its TF32 hi and lo parts
-        in the kernel's shared-memory layout) where it runs there (ci and
-        co in {1, 4, 8, 16, 32, 64}), else None."""
+        the kernel's shared-memory layout, f32 split into its TF32 hi and
+        lo parts) where it runs there (ci and co in {1, 4, 8, 16, 32, 64}),
+        else None."""
         self.weights()
         return self._prepared
 

@@ -17,13 +17,14 @@ picks the kernel by shape:
   and in f32.  An implicit GEMM on
   the tensor cores: each CTA stages the input planes of one block row
   with cp.async and feeds ldmatrix from them; the weights come pre-packed
-  (`pack_weight`, done once per layer by models/layers.py).  bf16:
-  mma.sync m16n8k16 / m16n8k8, every warp reading its B fragments from
-  L2.  f32: three TF32 products of split operands (3xTF32, which keeps f32
-  accuracy) on wgmma m64nNk8 where max(co, 8) >= 32, else on mma.sync
-  m16n8k8; the pre-split weights sit in shared memory, copied there by a
-  producer warp with TMA bulk copies, whole or step by step (`tc_plan`).
-  Output tiles without an occupied slot skip the arithmetic.
+  (`pack_weight`, done once per layer by models/layers.py) and sit in
+  shared memory, copied there by a producer warp with TMA bulk copies,
+  whole or step by step (`tc_plan`).  bf16: wgmma m64nNk16 where max(co,
+  8) reaches `TC_WGMMA_MIN_N` (64) and ci >= 16, else mma.sync m16n8k16
+  (m16n8k8 at ci <= 8).  f32: three TF32 products of split operands
+  (3xTF32, which keeps f32 accuracy) on wgmma m64nNk8 where max(co, 8)
+  reaches `TC_WGMMA_MIN_N` (32), else on mma.sync m16n8k8.  Output tiles
+  without an occupied slot skip the arithmetic.
 * "simt", csrc/conv3.cu: any other ci (co must still be one of the six).
   f32 FMA on the CUDA cores, one CTA per (block row, output x-plane).  It
   is no longer on the main path and stays as the comparison kernel, for
@@ -303,24 +304,24 @@ def route(ci: int, co: int, dtype, bs: Optional[int] = None) -> str:
 
 class TcPlan(NamedTuple):
     """How csrc/conv3_tc.cu tiles one (ci, co, dtype, block side) instance
-    (its `Cfg` / `CfgF` compute the same; the launch checks xp, rows, smem,
-    ps and wslots)."""
+    (its `Cfg` computes the same; the launch checks xp, rows, smem, ps and
+    wslots)."""
 
     xp: int       # output x-planes per CTA
     rows: int     # output y rows per CTA
-    threads: int  # one per (y, z) voxel of `ps` planes of those rows (f32:
-    #               and a producer warp beside them)
-    smem: int     # dynamic shared memory: the plane ring, f32 weights, bars
+    threads: int  # the consumers: one per (y, z) voxel of `ps` planes of
+    #               those rows (a producer warp runs beside them)
+    smem: int     # dynamic shared memory: the plane ring, weights, bars
     grid: tuple   # CTAs per block row: (x slabs, y-halves)
-    ps: int       # output planes per step (f32 at 8^3: 2)
-    wslots: int   # f32 weights in shared memory: 1 = the whole packed
-    #               kernel once per CTA, k >= 2 = a ring of k one-step
-    #               slices refilled per step; 0 (bf16) = read from L2
-    kg: int       # f32: k8 chunks per step (a step: one (dx, dz) and kg)
+    ps: int       # output planes per step (8^3: 2)
+    wslots: int   # weights in shared memory: 1 = the whole packed kernel
+    #               once per CTA, k >= 2 = a ring of k one-step slices
+    #               refilled per step
+    kg: int       # k chunks per step (a step: one (dx, dz) and kg chunks)
     mma: str      # the product instruction: "wgmma" or "mma.sync"
     weight_reads: int  # times a live row's CTAs read the packed weight
-    #                    from L2: per warp and plane (bf16), per CTA
-    #                    (f32, whole) or per CTA and step (f32, streamed)
+    #                    from L2: per CTA (whole) or per CTA and step
+    #                    (streamed)
 
     def l2_weight_bytes(self, live_rows: int, ci: int, co: int,
                         dtype) -> int:
@@ -329,7 +330,11 @@ class TcPlan(NamedTuple):
 
 
 TC_SMEM_MAX = 232448 - 256  # dynamic shared memory a CTA may use
-_TC_STEP_MAX = 12288  # weight bytes of an f32 step, at most
+_TC_STEP_MAX = 12288  # weight bytes of a step, at most
+# the least N (co padded to 8) at which conv3_tc.cu's products run on
+# wgmma rather than mma.sync, by compute dtype (its WG_MIN_N_*; measured
+# on the H100)
+TC_WGMMA_MIN_N = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def _tc_fit(smem: int, threads: int) -> int:
@@ -350,7 +355,7 @@ def _tc_keep_slots(ring: int, sb: int, nstep: int, threads: int,
 
 
 def _tc_kmax(kc: int, kb: int) -> int:
-    """The most k8 chunks of a tap (kb weight bytes each) within a step."""
+    """The most k chunks of a tap (kb weight bytes each) within a step."""
     g = kc
     while g > 1 and g * kb > _TC_STEP_MAX:
         g //= 2
@@ -358,28 +363,34 @@ def _tc_kmax(kc: int, kb: int) -> int:
 
 
 def tc_plan(ci: int, co: int, dtype, bs: Optional[int] = None) -> TcPlan:
-    """conv3_tc.cu's tiling.  Staged voxels of max(ci, 8) channels, padded
-    by 16 bytes where a voxel is an even number of 16-byte groups; a ring
-    of planes of (rows + 2) x (bs + 2) voxels; 16^3 blocks in slabs of 4
-    x-planes, split into y-halves where a full-plane ring does not fit,
-    8^3 blocks whole.
+    """conv3_tc.cu's tiling of one instance at block side `bs` (default
+    blocks.BS); see `_tc_plan`.  Cached: every launch reads it."""
+    return _tc_plan(ci, co, dtype, bs or B.BS)
 
-    bf16: a ring of 4 planes, one output plane at a time, every warp
-    reading its weight fragments from L2.  f32: the CTA is whole
-    warpgroups and a producer warp; one step covers one output plane at
-    16^3 and two at 8^3 (a ring of 6 planes), so that every pass over the
-    weights serves 128 output voxels or more; the packed weight sits in
-    shared memory, whole where it fits without costing CTAs per SM (up to
-    2), else streamed through a ring of one-step slices, a step one (dx,
-    dz) and `kg` k8 chunks (finer where two slots would cost CTAs per SM);
-    the products on wgmma where max(co, 8) >= 32, else on mma.sync."""
-    bs = bs or B.BS
-    f32 = dtype == torch.float32
-    sz = 4 if f32 else 2
-    cip, cop = max(ci, 8), max(co, 8)
+
+@functools.lru_cache(maxsize=None)
+def _tc_plan(ci: int, co: int, dtype, bs: int) -> TcPlan:
+    """conv3_tc.cu's tiling, the same rule in both dtypes.  Staged voxels
+    of max(ci, 8) channels, padded by 16 bytes where a voxel is an even
+    number of 16-byte groups; a ring of planes of (rows + 2) x (bs + 2)
+    voxels; 16^3 blocks in slabs of 4 x-planes, split into y-halves where
+    a full-plane ring does not fit, 8^3 blocks whole.
+
+    The CTA is whole warpgroups and a producer warp; one step covers one
+    output plane at 16^3 and two at 8^3 (a ring of 6 planes), so that
+    every pass over the weights serves 128 output voxels or more; the
+    packed weight sits in shared memory, whole where it fits without
+    costing CTAs per SM (up to 2), else streamed through a ring of
+    one-step slices, a step one (dx, dz) and `kg` k chunks (finer where
+    two slots would cost CTAs per SM); the products on wgmma where
+    max(co, 8) reaches `TC_WGMMA_MIN_N` and a chunk is 32 bytes deep (not
+    bf16 at ci <= 8, which runs k8), else on mma.sync."""
+    sz = dtype.itemsize
+    cip, cop, ks = _tc_dims(ci, co, dtype)
+    parts = 2 if dtype == torch.float32 else 1
     rs = cip + (16 // sz if (cip * sz // 16) % 2 == 0 else 0)
     hs = bs + 2
-    ps = 2 if f32 and bs == 8 else 1
+    ps = 2 if bs == 8 else 1
     nbuf = 2 * ps + 2
     ys = 2 if nbuf * hs * hs * rs * sz > TC_SMEM_MAX else 1
     rows = bs // ys
@@ -387,14 +398,12 @@ def tc_plan(ci: int, co: int, dtype, bs: Optional[int] = None) -> TcPlan:
     threads = ps * rows * bs
     ring = nbuf * (rows + 2) * hs * rs * sz
     grid = (bs // xp, ys)
-    if not f32:
-        return TcPlan(xp, rows, threads, ring, grid, 1, 0, 0, "mma.sync",
-                      bs ** 3 // 32)
-    mma = "wgmma" if cop >= 32 else "mma.sync"
-    kc, kb = cip // 8, 3 * 2 * 8 * cop * 4
+    wg = ks * sz == 32 and cop >= TC_WGMMA_MIN_N[dtype]
+    mma = "wgmma" if wg else "mma.sync"
+    kc, kb = cip // ks, 3 * parts * ks * cop * sz
     cta = threads + 32  # and the producer warp
     keep = min(_tc_fit(ring, cta), 2)
-    wb = 27 * cip * cop * 8
+    wb = packed_bytes(ci, co, dtype)
     if ring + wb + 8 <= TC_SMEM_MAX and _tc_fit(ring + wb + 8, cta) >= keep:
         return TcPlan(xp, rows, threads, ring + wb + 8, grid, ps, 1,
                       _tc_kmax(kc, kb), mma, grid[0] * grid[1])
@@ -412,9 +421,9 @@ def tc_plan(ci: int, co: int, dtype, bs: Optional[int] = None) -> TcPlan:
 
 
 def _tc_dims(ci: int, co: int, dtype) -> tuple:
-    """(ci padded, co padded, mma depth) of the tensor-core kernel: ci and
-    co below 8 are zero-padded to 8; the depth is 8 in f32 (tf32 k8) and
-    16 in bf16 (8 for ci <= 8)."""
+    """(ci padded, co padded, k chunk depth) of the tensor-core kernel: ci
+    and co below 8 are zero-padded to 8; the depth is 8 in f32 (tf32 k8)
+    and 16 in bf16 (8 for ci <= 8)."""
     cip, cop = max(ci, 8), max(co, 8)
     ks = 16 if dtype == torch.bfloat16 and cip >= 16 else 8
     return cip, cop, ks
@@ -425,7 +434,7 @@ def packed_shape(ci: int, co: int, dtype) -> tuple:
     cip, cop, ks = _tc_dims(ci, co, dtype)
     if dtype == torch.float32:
         return (3, 3, cip // 8, 3, 2, cop // 8, 2, 8, 4)
-    return (27, cip // ks, cop // 8, 8, 4, ks // 8, 2)
+    return (3, 3, cip // ks, 3, cop // 8, ks // 8, 8, 8)
 
 
 def packed_bytes(ci: int, co: int, dtype) -> int:
@@ -450,23 +459,24 @@ def tf32_split(x: torch.Tensor) -> tuple:
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
-    """[3, 3, 3, ci, co] -> the B operand of conv3_tc.cu; ci and co below 8
-    are zero-padded to 8.
+    """[3, 3, 3, ci, co] -> the B operand of conv3_tc.cu, the
+    shared-memory image of the kernel's steps; ci and co below 8 are
+    zero-padded to 8.
 
-    bf16, in mma fragment order: [27, ci/KS, co/8, 8, 4, KS/8, 2] (tap, k
-    chunk, n tile, g, q, r, e): lane 4g+q of n tile nt reads
-    W[tap, KS*kc + 8r + 2q + e, 8nt + g] as KS/8 bf16 pairs, KS the mma
-    depth (16, or 8 for ci <= 8).
+    A k chunk (dx, dz, kc) is one contiguous slice of 3 dy x (f32: 2
+    parts) KS x co tiles, KS the chunk depth (`_tc_dims`), each the
+    K-major layout of 8 x 16-byte core matrices (rows of one n, 16 bytes
+    of k each) that wgmma's descriptor and ldmatrix read: a 32-byte-deep
+    tile's n tiles 256 bytes apart, its k halves 128.  A step of the
+    kernel (`tc_plan`'s kg chunks of one (dx, dz)) is one bulk copy.
 
-    f32, the shared-memory image of the kernel's steps: [3, 3, ci/8, 3, 2,
-    co/8, 2, 8, 4] (dx, dz, k chunk, dy, part, n tile, k half, n, k) holds
-    part s (0 = hi, 1 = lo, `tf32_split`) of
-    W[dx, dy, dz, 8kc + 4h + k, 8nt + n].  A k8 chunk (dx, dz, kc) is one
-    contiguous slice of 3 x 2 K8 x co tiles, each the K-major layout of
-    8 x 4 core matrices (16-byte rows of one n, 4 k each) that wgmma's
-    descriptor and ldmatrix read: n tiles 256 bytes apart, k halves 128.
-    A step of the kernel (`tc_plan`'s kg chunks of one (dx, dz)) is one
-    bulk copy."""
+    bf16: [3, 3, ci/KS, 3, co/8, KS/8, 8, 8] (dx, dz, k chunk, dy, n tile,
+    k half, n, k) holds W[dx, dy, dz, KS kc + 8h + k, 8nt + n], KS 16 (8
+    for ci <= 8: one core matrix per n tile).
+
+    f32: [3, 3, ci/8, 3, 2, co/8, 2, 8, 4] (dx, dz, k chunk, dy, part, n
+    tile, k half, n, k) holds part s (0 = hi, 1 = lo, `tf32_split`) of
+    W[dx, dy, dz, 8kc + 4h + k, 8nt + n]."""
     ci, co = weight.shape[3], weight.shape[4]
     cip, cop, ks = _tc_dims(ci, co, weight.dtype)
     w = torch.nn.functional.pad(weight, (0, cop - co, 0, cip - ci))
@@ -475,8 +485,9 @@ def pack_weight(weight: torch.Tensor) -> torch.Tensor:
         w = w.reshape(2, 3, 3, 3, cip // 8, 2, 4, cop // 8, 8)
         #     s  dx dy dz kc h  k  nt n -> dx dz kc dy s nt h n k
         return w.permute(1, 3, 4, 2, 0, 7, 5, 8, 6).contiguous()
-    w = w.reshape(27, cip // ks, ks // 8, 4, 2, cop // 8, 8)
-    return w.permute(0, 1, 5, 6, 3, 2, 4).contiguous()
+    w = w.reshape(3, 3, 3, cip // ks, ks // 8, 8, cop // 8, 8)
+    #     dx dy dz kc h  k  nt n -> dx dz kc dy nt h n k
+    return w.permute(0, 2, 3, 1, 6, 4, 7, 5).contiguous()
 
 
 def unpack_parts(packed: torch.Tensor, ci: int, co: int) -> tuple:
@@ -495,8 +506,9 @@ def unpack_weight(packed: torch.Tensor, ci: int, co: int) -> torch.Tensor:
         hi, lo = unpack_parts(packed, ci, co)
         return hi + lo
     cip, cop, _ = _tc_dims(ci, co, packed.dtype)
-    w = packed.permute(0, 1, 5, 4, 6, 2, 3)
-    return w.reshape(27, cip, cop)[:, :ci, :co].reshape(3, 3, 3, ci, co)
+    #        dx dz kc dy nt h n k -> dx dy dz kc h k nt n
+    w = packed.permute(0, 3, 1, 2, 5, 7, 4, 6)
+    return w.reshape(3, 3, 3, cip, cop)[..., :ci, :co].contiguous()
 
 
 def _check(bg: B.BlockGrid, nbrs, weight, bias, cd, packed, kernel) -> None:
@@ -575,7 +587,7 @@ def _run(kernel: str, bg: B.BlockGrid, nbrs: torch.Tensor,
     x = _aligned(bg.feats.to(cd), 16)
     nbrs = nbrs.contiguous()
     mask = _aligned(bg.mask, 4)
-    # the f32 weights go to shared memory by bulk copies of 16-byte pieces
+    # the weights go to shared memory by bulk copies of 16-byte pieces
     wt = _aligned(packed, 16) if kernel == "tc" else weight
     out = torch.empty((nb, B.VOL, co), dtype=cd, device=dev)
     lib = _load()

@@ -191,12 +191,14 @@ def test_pack_weight_roundtrip(ci, co, dtype):
 
 @pytest.mark.parametrize("ci,co,dtype", _pack_cases([(8, 16), (32, 8)]))
 def test_pack_weight_fragment_order(ci, co, dtype):
-    """bf16: lane 4g+q of n tile nt holds W[tap, KS*kc + 8r + 2q + e,
-    8nt + g], the B fragment of mma.sync m16n8k{KS} (KS = 8 for ci = 8,
-    else 16).  f32: step (dx, dz, kc), tap dy, part s (hi, lo), n tile
-    nt, k half h, row n, column k holds part s of
-    W[dx, dy, dz, 8kc + 4h + k, 8nt + n]: the K-major core matrices of
-    the step's weights in shared memory."""
+    """bf16: step (dx, dz, kc), tap dy, n tile nt, k half h, row n, column
+    k holds W[dx, dy, dz, KS*kc + 8h + k, 8nt + n] (KS = 8 for ci = 8,
+    else 16): lane 4g+q, whose ldmatrix reads row g at columns 2q and 2q +
+    1 of core matrix (nt, h), gets the B fragment of mma.sync m16n8k{KS}.
+    f32: step (dx, dz, kc), tap dy, part s (hi, lo), n tile nt, k half h,
+    row n, column k holds part s of W[dx, dy, dz, 8kc + 4h + k, 8nt + n].
+    Both are the K-major core matrices of the step's weights in shared
+    memory."""
     g_ = torch.Generator().manual_seed(ci * co)
     w = torch.randn(3, 3, 3, ci, co, generator=g_).to(dtype)
     packed = TK.pack_weight(w)
@@ -210,13 +212,13 @@ def test_pack_weight_fragment_order(ci, co, dtype):
                        rng.randint(co // 8))
         g, q, r, e = (rng.randint(8), rng.randint(4), rng.randint(2),
                       rng.randint(2))
+        dx, dy, dz = tap // 9, tap // 3 % 3, tap % 3
         if f32:  # e is the part s, r the k half, g the row, q the column
-            dx, dy, dz = tap // 9, tap // 3 % 3, tap % 3
             assert (packed[dx, dz, kc, dy, e, nt, r, g, q]
                     == parts[e, tap, 8 * kc + 4 * r + q, 8 * nt + g])
-        else:
+        else:  # lane 4g + q's pair (k = 2q + e) of core matrix (nt, r)
             r %= ks // 8
-            assert (packed[tap, kc, nt, g, q, r, e]
+            assert (packed[dx, dz, kc, dy, nt, r, g, 2 * q + e]
                     == wf[tap, ks * kc + 8 * r + 2 * q + e, 8 * nt + g])
 
 

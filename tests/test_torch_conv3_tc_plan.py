@@ -1,10 +1,10 @@
-"""conv3_tc.cu's plans and its f32 weight layout, on the CPU: every
-instance fits its shared memory, the f32 weight ring hands each step of
-every pass the weights it needs, the f32 instances read at most a quarter
-of the weight bytes from L2 that per-warp fragment reads took, the bf16
-plans are those of the per-warp design, and the f32 pack read the way the
-kernel's wgmma descriptors address it gives the weight back.  The kernel
-itself runs only on the card (chip_smoke.py)."""
+"""conv3_tc.cu's plans and its weight layout, on the CPU: every instance
+fits its shared memory, the weight ring hands each step of every pass the
+weights it needs, every instance reads at most a quarter of the weight
+bytes from L2 that per-warp fragment reads took, and the pack read the
+way the kernel's wgmma descriptors (and, in bf16, its ldmatrix B loads)
+address it gives the weight back, in f32 and bf16.  The kernel itself
+runs only on the card (chip_smoke.py)."""
 
 import pytest
 import torch
@@ -16,20 +16,6 @@ CASES = [pytest.param(bs, ci, co, dtype,
                       id=f"bs{bs}-{ci}-{co}-{str(dtype)[6:]}")
          for bs in (16, 8) for ci, co in TK.TC_PAIRS[bs]
          for dtype in (torch.float32, torch.bfloat16)]
-
-
-def _per_warp_plan(ci, bs, dtype):
-    """(xp, rows, threads, smem, grid) of the design in which every warp
-    read its weight fragments from L2: a ring of 4 planes, one thread per
-    (y, z) voxel of one plane's rows, y-halves where a full-plane ring
-    does not fit."""
-    sz = 4 if dtype == torch.float32 else 2
-    cip = max(ci, 8)
-    rs = cip + (16 // sz if (cip * sz // 16) % 2 == 0 else 0)
-    hs = bs + 2
-    ys = 2 if 4 * hs * hs * rs * sz > SMEM_MAX else 1
-    rows, xp = bs // ys, (4 if bs == 16 else 8)
-    return xp, rows, rows * bs, 4 * (rows + 2) * hs * rs * sz, (bs // xp, ys)
 
 
 def _ring_schedule(p, nstep):
@@ -51,28 +37,34 @@ def _ring_schedule(p, nstep):
 
 @pytest.mark.parametrize("bs,ci,co,dtype", CASES)
 def test_tc_plan_fits_and_covers(bs, ci, co, dtype):
+    """One rule for both dtypes: whole warpgroups and a producer warp, the
+    weights in shared memory beside the planes (whole, or a ring of
+    one-step slots), the products on wgmma where N reaches the dtype's
+    threshold and a chunk is 32 bytes deep."""
     p = TK.tc_plan(ci, co, dtype, bs=bs)
+    f32 = dtype == torch.float32
+    sz, parts = (4, 2) if f32 else (2, 1)
     cip, cop = max(ci, 8), max(co, 8)
+    ks = 8 if f32 or cip < 16 else 16
     assert p.smem <= SMEM_MAX
     # the product's N is the padded co: a multiple of 8 up to wgmma's 256
     assert cop % 8 == 0 and cop <= 256
     live = 1000
+    # the per-warp design read the packed kernel once per warp and output
+    # plane: bs^3 / 32 times per live row
     per_warp = live * bs ** 3 // 32 * TK.packed_bytes(ci, co, dtype)
-    if dtype == torch.bfloat16:
-        assert p[:5] == _per_warp_plan(ci, bs, dtype)
-        assert (p.ps, p.wslots, p.mma) == (1, 0, "mma.sync")
-        assert p.l2_weight_bytes(live, ci, co, dtype) == per_warp
-        return
-    # f32: whole warpgroups, weights in shared memory beside the planes
     assert p.threads % 128 == 0
     kg = p.kg
-    nstep, sb = 9 * (cip // 8) // kg, kg * 3 * 2 * 8 * cop * 4
-    assert (cip // 8) % kg == 0 and (sb <= 12288 or kg == 1)
-    assert p.mma == ("wgmma" if cop >= 32 else "mma.sync")
-    assert TK.packed_bytes(ci, co, dtype) == nstep * sb == 27 * cip * cop * 8
+    kb = 3 * parts * ks * cop * sz  # a k chunk: 3 dy x parts KS x co
+    nstep, sb = 9 * (cip // ks) // kg, kg * kb
+    assert (cip // ks) % kg == 0 and (sb <= 12288 or kg == 1)
+    wgmma = ks * sz == 32 and cop >= TK.TC_WGMMA_MIN_N[dtype]
+    assert p.mma == ("wgmma" if wgmma else "mma.sync")
+    assert TK.packed_bytes(ci, co, dtype) == nstep * sb == (
+        27 * cip * cop * sz * parts)
     nbuf = 2 * p.ps + 2
-    ring = nbuf * (p.rows + 2) * (bs + 2) * (cip + (4 if cip // 4 % 2 == 0
-                                                     else 0)) * 4
+    rs = cip + (16 // sz if (cip * sz // 16) % 2 == 0 else 0)
+    ring = nbuf * (p.rows + 2) * (bs + 2) * rs * sz
     if p.wslots == 1:
         assert p.smem == ring + nstep * sb + 8
     else:
@@ -90,10 +82,11 @@ def test_tc_plan_fits_and_covers(bs, ci, co, dtype):
                   for kk in range(kg))
     assert taps == sorted((dx, dy, dz, kc) for dx in range(3)
                           for dy in range(3) for dz in range(3)
-                          for kc in range(cip // 8))
+                          for kc in range(cip // ks))
     reads = p.grid[0] * p.grid[1] * (1 if p.wslots == 1 else passes)
     assert p.weight_reads == reads
     # L2 weight bytes at most a quarter of per-warp fragment reads
+    assert 4 * p.weight_reads <= bs ** 3 // 32
     assert 4 * p.l2_weight_bytes(live, ci, co, dtype) <= per_warp
 
 
@@ -133,3 +126,52 @@ def test_f32_pack_read_by_wgmma_descriptors(ci, co):
     full = torch.tensor(parts)
     assert float(full[..., ci:, :].abs().sum()) == 0.0
     assert float(full[..., co:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("ci,co", [(1, 16), (4, 4), (16, 4), (32, 8),
+                                   (64, 64), (16, 1)])
+def test_bf16_pack_read_by_wgmma_descriptors(ci, co):
+    """Walk the packed bf16 kernel as conv3_tc.cu addresses it, in plain
+    Python: step k = (dx, dz, kc) at k * SB bytes (KS the chunk depth, 16,
+    or 8 at ci <= 8), the dy slice at dy * 2 KS co bytes.  wgmma's
+    descriptor reads element (k, n) of its K16 x co tile at n / 8 * 256
+    (stride byte offset) + k / 8 * 128 (leading byte offset) + n % 8 * 16
+    + k % 8 * 2; mma.sync's ldmatrix B loads (lane l at l * 16 bytes of
+    the slice, four core matrices a load) give lane 4g + q of n tile nt
+    the pair k = 8h + 2q, 2q + 1 of n = 8nt + g in register nt KS/8 + h.
+    Both give W back, the padding zero."""
+    g_ = torch.Generator().manual_seed(ci * 100 + co)
+    w = torch.randn(3, 3, 3, ci, co, generator=g_).to(torch.bfloat16)
+    flat = TK.pack_weight(w).view(torch.int16).reshape(-1).tolist()
+    cip, cop = max(ci, 8), max(co, 8)
+    ks = 16 if cip >= 16 else 8
+    kc_n, slb = cip // ks, 2 * ks * cop
+    bits = w.view(torch.int16)
+    desc = [[[[[None] * cop for _ in range(cip)] for _ in range(3)]
+             for _ in range(3)] for _ in range(3)]
+    for k in range(9 * kc_n):
+        dx, dz, kc = k // (3 * kc_n), k // kc_n % 3, k % kc_n
+        for dy in range(3):
+            start = k * 3 * slb + dy * slb  # the slice
+            for kk in range(ks):
+                for n in range(cop):
+                    off = (start + n // 8 * (ks * 16) + kk // 8 * 128
+                           + n % 8 * 16 + kk % 8 * 2)
+                    desc[dx][dy][dz][ks * kc + kk][n] = flat[off // 2]
+            # ldmatrix: matrix m of the slice, row r, at m * 128 + r * 16;
+            # lane T reads row T / 4, elements 2 (T % 4), +1
+            kh = ks // 8
+            for nt in range(cop // 8):
+                for h in range(kh):
+                    m = nt * kh + h
+                    for lane in range(32):
+                        gg, q = lane // 4, lane % 4
+                        for e in range(2):
+                            off = start + m * 128 + gg * 16 + (2 * q + e) * 2
+                            kk, n = ks * kc + 8 * h + 2 * q + e, 8 * nt + gg
+                            assert flat[off // 2] == desc[dx][dy][dz][kk][n]
+    full = torch.tensor(desc, dtype=torch.int16)
+    torch.testing.assert_close(full[..., :ci, :co], bits, rtol=0, atol=0)
+    # the padding (ci, co below 8) is zero
+    assert int(full[..., ci:, :].abs().sum()) == 0
+    assert int(full[..., co:].abs().sum()) == 0

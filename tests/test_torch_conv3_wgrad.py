@@ -172,7 +172,7 @@ def test_wgrad_plan_at_bs8_covers_dw_once_and_fits(ci, co, x_dtype, cd):
 def test_tc_plan_fits_and_tiles_every_output_once(bs, dtype):
     """conv3_tc.cu's tiling at every instance of a block side: one thread
     per (y, z) voxel of a CTA's rows in each of the planes of a step (32
-    per warp, two m16 tiles; f32 whole warpgroups), the CTAs of a row
+    per warp, two m16 tiles; whole warpgroups), the CTAs of a row
     covering its bs^3 outputs once, the mask slab a whole number of words
     per thread, the plane ring within a CTA's shared memory; 8^3 blocks
     whole in one CTA, without a y-split."""
@@ -180,8 +180,7 @@ def test_tc_plan_fits_and_tiles_every_output_once(bs, dtype):
         p = TK.tc_plan(ci, co, dtype, bs=bs)
         assert p.threads % 32 == 0 and p.threads == p.ps * p.rows * bs
         assert p.xp % p.ps == 0
-        if dtype == torch.float32:
-            assert p.threads % 128 == 0
+        assert p.threads % 128 == 0
         assert p.grid[0] * p.xp == bs and p.grid[1] * p.rows == bs
         assert (p.xp * p.rows * bs) % (4 * p.threads) == 0
         assert p.smem <= TK.TC_SMEM_MAX
