@@ -10,7 +10,9 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. card identity (nvidia-smi name and power limit); TF32 off; beside
      the later phases, `cuobjdump -sass` of the built library: every
      conv3_tc.cu instance, f32 and bf16, holds the products its plan
-     names (HGMMA for wgmma, HMMA for mma.sync) and bulk copies (UBLKCP).
+     names (HGMMA for wgmma, HMMA for mma.sync) and bulk copies (UBLKCP);
+     every conv3_wgrad.cu instance runs the kernel its plan names, HMMA
+     in each bf16-dy instance on mma.sync, none in the f32-dy ones.
   2. conv3: the routed CUDA kernel (conv3_tc.cu on the tensor cores, at
      every shape of the main path) and the CUDA-core kernel conv3.cu, each
      against conv3_plain at every (nb_cap, ci, co) of the vox10 main path,
@@ -214,6 +216,20 @@ F32_ROUTE = ("3xTF32, weights staged in shared memory by TMA bulk copies "
 BF16_ROUTE = ("bf16, weights staged in shared memory by TMA bulk copies "
               "(producer warp, mbarrier ring); wgmma m64nNk16 at co = 64 and "
               "ci >= 16, mma.sync m16n8k16 (m16n8k8 at ci <= 8) below")
+# the design of conv3_wgrad.cu's f32 and bf16 instances (dy's dtype), as
+# the kernels line names it
+WGRAD_F32_ROUTE = ("f32 on the CUDA cores: f32 FMAs, one pass per live row "
+                   "for all 27 taps over cp.async-staged input planes, "
+                   "persistent CTAs, fixed-order sums")
+WGRAD_BF16_ROUTE = ("bf16 at ci >= 8 on the tensor cores: mma.sync "
+                    "m16n8k16 with the live voxels as K, X^T and dY by "
+                    "ldmatrix.trans from bf16 planes (f32 x rounded on the "
+                    "way in through registers) and dy rows in XOR-swizzled "
+                    "shared memory, the gather in each lane's row address; "
+                    "a ring of planes at 16^3, an item's whole halo at 8^3; "
+                    "persistent CTAs, fixed-order sums; ci < 8 (1->16, "
+                    "4->4, 4->8) on the CUDA cores, f32 FMAs over "
+                    "bf16-rounded inputs")
 # forward launches of a path checked on their own inputs (spy_forward)
 # against f32 conv3_plain, max abs error over max |ref|: dX's tolerances,
 # since dX is this kernel (the bf16 one is phase 2's TOL_BF16_REL)
@@ -237,13 +253,17 @@ def tc_sass(lib) -> dict:
     """The built library's conv3_tc.cu instances, by "dtype/ci/co/bs"
     (dtype f32 or bf16): how many HGMMA (wgmma), HMMA (mma.sync) and
     UBLKCP (bulk copy) instructions `cuobjdump -sass` finds in each (both
-    __launch_bounds__ variants summed), and the seconds it took."""
+    __launch_bounds__ variants summed); conv3_wgrad.cu's instances by
+    "x dtype/dy dtype/ci/co/bs" with the kernel that holds them (mma for
+    wgrad_mma_kernel, cuda_cores for wgrad_partial_kernel) and their HMMA;
+    and the seconds it took."""
     import re
 
     t0 = time.perf_counter()
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
-    out, key = {}, None
+    out, wgrad, key, cur = {}, {}, None, None
+    dt = {"f": "f32", "13__nv_bfloat16": "bf16"}
     # grep keeps the few lines read here, in a process of its own
     with subprocess.Popen([tool, "-sass", str(lib)],
                           stdout=subprocess.PIPE) as p:
@@ -253,24 +273,40 @@ def tc_sass(lib) -> dict:
         p.stdout.close()
     for line in lines:
         if "Function :" in line:
+            cur = None
             m = re.search(r"conv3_tc_kernel_(f32|bf16)(?:_fit)?ILi(\d+)ELi"
                           r"(\d+)ELi(\d+)E", line)
             key = "/".join(m.groups()) if m else None
             if key:
                 out.setdefault(key, {"HGMMA": 0, "HMMA": 0, "UBLKCP": 0})
-        elif key:
+                cur = out[key]
+            # a repeated type is mangled as a substitution (S_, S0_, ...)
+            w = re.search(r"wgrad_(mma|partial)_kernelI(f|13__nv_bfloat16)"
+                          r"(f|13__nv_bfloat16|S\d*_)?Li(\d+)ELi(\d+)ELi"
+                          r"(\d+)E", line)
+            if w:
+                kind, tx, tg, ci, co, bs = w.groups()
+                tg = tx if tg and tg.startswith("S") else tg
+                wk = "/".join((dt[tx], dt[tg] if tg else "bf16", ci, co, bs))
+                cur = wgrad[wk] = {
+                    "kernel": "mma" if kind == "mma" else "cuda_cores",
+                    "HGMMA": 0, "HMMA": 0, "UBLKCP": 0}
+        elif cur is not None:
             for op in ("HGMMA", "HMMA", "UBLKCP"):
-                out[key][op] += f" {op}." in line or f" {op} " in line
+                cur[op] += f" {op}." in line or f" {op} " in line
     if p.returncode != 0:
         raise RuntimeError(f"cuobjdump -sass failed on {lib}")
-    return {"instances": out, "seconds": time.perf_counter() - t0}
+    return {"instances": out, "wgrad": wgrad,
+            "seconds": time.perf_counter() - t0}
 
 
 def check_tc_sass(lib) -> None:
     """`tc_sass` of the built library against the plans: every instance
     of conv3_tc.cu, f32 and bf16, holds HGMMA and no HMMA where its plan
-    says wgmma, HMMA where mma.sync, and UBLKCP; logs the counts per
-    dtype, raises on a difference."""
+    says wgmma, HMMA where mma.sync, and UBLKCP; every instance of
+    conv3_wgrad.cu runs the kernel its `wgrad_plan` names, with HMMA
+    where that is mma.sync (bf16 dy) and none on the CUDA cores (every f32
+    dy); logs the counts per dtype, raises on a difference."""
     import torch
 
     from pcgcv2_torch.ops import conv3 as K
@@ -297,10 +333,32 @@ def check_tc_sass(lib) -> None:
             "ci/co/bs: " + ", ".join(
                 f"{k.split('/', 1)[1]} {v['HGMMA']}/{v['HMMA']}"
                 for k, v in sorted(mine.items())))
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    wbad = []
+    for key, v in sorted(sass["wgrad"].items()):
+        xd, gd, ci, co, bs = key.split("/")
+        mma = K.wgrad_plan(int(ci), int(co), dts[xd], dts[gd],
+                           bs=int(bs)).mma
+        if (v["kernel"] == "mma") != mma or (v["HMMA"] > 0) != mma:
+            wbad.append((key, mma, v))
+    for gd in ("f32", "bf16"):
+        mine = {k: v for k, v in sass["wgrad"].items()
+                if k.split("/")[1] == gd}
+        log(f"phase 1, cuobjdump -sass: {len(mine)} conv3_wgrad.cu "
+            f"instances with {gd} dy, on mma.sync (wgrad_mma_kernel) "
+            f"{sum(v['kernel'] == 'mma' for v in mine.values())}, HMMA in "
+            f"{sum(v['HMMA'] > 0 for v in mine.values())}, as planned in "
+            f"{len(mine) - sum(b[0] in mine for b in wbad)}; HMMA per "
+            "bf16-dy instance x/ci/co/bs: " + ", ".join(
+                f"{k.split('/')[0]}/{'/'.join(k.split('/')[2:])} {v['HMMA']}"
+                for k, v in sorted(mine.items()) if gd == "bf16"))
     n_tc = 2 * sum(len(K.TC_PAIRS[bs]) for bs in K.BLOCK_SIDES)
-    if bad or len(ops) != n_tc:
-        raise AssertionError(f"conv3_tc.cu instances against their plans "
-                             f"({len(ops)} of {n_tc} found): {bad}")
+    n_wg = 4 * sum(len(K.WGRAD_PAIRS[bs]) for bs in K.BLOCK_SIDES)
+    if bad or len(ops) != n_tc or wbad or len(sass["wgrad"]) != n_wg:
+        raise AssertionError(
+            f"conv3_tc.cu instances against their plans ({len(ops)} of "
+            f"{n_tc} found): {bad}; conv3_wgrad.cu ({len(sass['wgrad'])} "
+            f"of {n_wg} found): {wbad}")
 
 
 def card_identity() -> str:
@@ -1110,6 +1168,11 @@ def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad,
          "dw_max_abs_err": float((dw - rdw).abs().max()),
          "dw_max_abs_ref": float(rdw.abs().max())}
     r["dw_same_bits"] = torch.equal(dw, real_wgrad(bg, dy, nbrs, cd))
+    # beside it, the plain version in the compute dtype (bf16-rounded x and
+    # dy, f32 matmuls): what the kernel's own sums are held to elsewhere
+    r["dw_plain_rel_err"] = float(
+        (dw - K.conv3_wgrad_plain(bg, dy, nbrs, cd)).abs().max()
+        / max(r["dw_max_abs_ref"], 1e-30))
     ok = r["dw_same_bits"] and (
         r["dw_max_abs_err"] <= TRAIN_TOL["dw"][dtype] * r["dw_max_abs_ref"])
     if dx is not None:
@@ -1461,7 +1524,8 @@ def log_backward(rows, dtype: str) -> None:
             f"{rs[0]['occupancy']:.3f} | {dx} | dW x{len(rs)} "
             f"{tot('dw_ms'):.4f} ms plain {tot('dw_plain_ms'):.4f} cuDNN "
             f"{tot('dw_library_ms'):.4f} bound {tot('dw_bytes_ms'):.4f}/"
-            f"{tot('dw_ops_ms'):.4f} err/|ref| {worst('dw'):.3g} same bits "
+            f"{tot('dw_ops_ms'):.4f} err/|ref| {worst('dw'):.3g} vs plain "
+            f"{max(r['dw_plain_rel_err'] for r in rs):.3g} same bits "
             f"{all(r['dw_same_bits'] for r in rs)} "
             f"{'OK' if all(r['ok'] for r in rs) else 'FAIL'}")
     t = {k: per_step_sum(rows, k) for k in (
@@ -1471,7 +1535,9 @@ def log_backward(rows, dtype: str) -> None:
         f"(plain {t['dx_plain_ms']:.3f}, cuDNN {t['dx_library_ms']:.3f}, "
         f"bound {t['dx_bound_ms']:.4f}); dW {t['dw_ms']:.3f} ms (plain "
         f"{t['dw_plain_ms']:.3f}, cuDNN {t['dw_library_ms']:.3f}, bound "
-        f"{t['dw_bound_ms']:.4f})")
+        f"{t['dw_bound_ms']:.4f}; worst error against conv3_wgrad_plain in "
+        f"{dtype} {max(r['dw_plain_rel_err'] for r in rows):.3g} of max "
+        f"|ref|)")
 
 
 def per_step_sum(rows, key: str) -> float:
@@ -2031,9 +2097,7 @@ def train_kernel_entries(train) -> list:
              "tc (conv3_tc.cu on flip_weight(W), {})",
              "torch.nn.grad.conv3d_input (cuDNN) on the live rows' halo"),
             ("conv3_wgrad", "dw", "pcgcv2_torch/csrc/conv3_wgrad.cu",
-             "conv3_wgrad.cu (CUDA cores, f32 FMA; one pass per live row "
-             "for all 27 taps over cp.async-staged input planes, persistent "
-             "CTAs, fixed-order sums; {} inputs)",
+             "conv3_wgrad.cu ({})",
              "torch.nn.grad.conv3d_weight (cuDNN) on the live rows' halo")):
         out.append({
             "name": name, "route": "cuda", "source": source,
@@ -2041,10 +2105,11 @@ def train_kernel_entries(train) -> list:
             "replaces": "pcgcv2_tpu/ops/blocks.py:656",
             **entry(prefix, "float32"), "dtype": "float32",
             "kernel_route": how.format(F32_ROUTE if prefix == "dx"
-                                       else "f32"),
+                                       else WGRAD_F32_ROUTE),
             "bfloat16": {**entry(prefix, "bfloat16"), "source": source,
                          "kernel_route": how.format(
-                             BF16_ROUTE if prefix == "dx" else "bf16")},
+                             BF16_ROUTE if prefix == "dx"
+                             else WGRAD_BF16_ROUTE)},
             "library": lib, "per": "training step",
         })
     return out

@@ -1,6 +1,7 @@
 // Weight gradient of the 3^3 stride-1 sparse convolution over dense BS^3
-// voxel blocks (BS = 16 or 8, a template parameter; sm_90a, CUDA cores,
-// f32 accumulation), in bf16 and f32.
+// voxel blocks (BS = 16 or 8, a template parameter; sm_90a, f32
+// accumulation): bf16 dy on the tensor cores (mma.sync), f32 dy on the
+// CUDA cores.
 //
 // conv3's backward has no Pallas original: the TPU kernel
 // pcgcv2_tpu/ops/pallas_conv.py::conv3_pallas (:119) is forward only, and
@@ -14,9 +15,9 @@
 // halo_i the (BS+2)^3 neighbourhood of block row i gathered through
 // nbrs[i] (a miss reads the all-zero sentinel row), dy the output
 // gradient, read only at occupied slots.  Under bf16 compute dy comes in
-// bf16 and x, read as the grid stores it, is rounded to bf16 (then f32) as
-// it is staged: the rounding conv3_wgrad_plain does.  (The input gradient
-// is the forward kernel, conv3_tc.cu, on the flipped, transposed weight.)
+// bf16 and x, read as the grid stores it, is rounded to bf16 as it is
+// staged: the rounding conv3_wgrad_plain does.  (The input gradient is
+// the forward kernel, conv3_tc.cu, on the flipped, transposed weight.)
 //
 // What bounds it on this card: per occupied output voxel and tap it does
 // 2*ci*co FLOP against ci + co values, so the dense work is small and a
@@ -29,44 +30,51 @@
 //     work items below *count (read on the device: no host sync) and keep
 //     their sums in registers.  An item is a live row, or a chunk of
 //     BS/2, ..., 2 or 1 of its BS output x-planes where the rows are too
-//     few to give every CTA one (`work_items`).  At BS = 8 the grid has
-//     about 4x the rows of an eighth of the slots, so items are whole rows
-//     more often;
+//     few to give every CTA one (`work_items`);
 //   * every CTA computes all 27 taps of a ci tile x co tile (a split),
 //     chosen per (ci, co, x dtype, dy dtype) by `make_plan` (the wrapper's
-//     ops/conv3.py::wgrad_plan mirrors it) so that each thread holds at
-//     most ACC_MAX accumulators and the staging fits in shared memory;
-//     27 * ci_tile * co_tile <= 16384, so every instance keeps its taps
-//     together and the wide ones split their channels (64 -> 64 into 8 ci
-//     tiles of 8);
-//   * per item, a block-wide scan of the row's BS^3 mask bytes (16 per
-//     thread at BS = 16, 2 at BS = 8) lists its occupied slots in
-//     ascending order, grouped by x-plane.  Then, one output x-plane at a
-//     time, dy at that plane's slots and the three input planes its taps
-//     read ((BS+2)^2 x ci-tile tiles from the neighbour rows; misses read
-//     the zero sentinel row) are gathered with cp.async
-//     (16 bytes, or 8 or 4 for a narrower voxel; a 2-byte voxel by plain
-//     loads) into rings of plane buffers, one plane ahead of their use, as
-//     conv3_tc.cu stages the forward.  Each input plane is staged once per
-//     item and split and read by the 9 taps of each of its 3 output
-//     planes.  Staged y rows are padded by 16 bytes, which spreads the dy
-//     taps of a warp over the banks.  A plane no occupied output plane
-//     reads is not staged, an empty output plane is not computed;
-//   * every thread owns a TM x TN tile of one tap's [ci, co] block and
-//     walks every KSPLIT-th listed voxel, reading only shared memory;
-//   * at the end the KSPLIT partial tiles are summed in a fixed order into
-//     part[b, tap, ci, co], and a second kernel sums the partials of the
-//     CTAs that had an item in a fixed order.  No atomics: the same bits
-//     every run.
+//     ops/conv3.py::wgrad_plan mirrors it and the launch refuses another
+//     plan) so that each thread holds at most ACC_MAX accumulators and the
+//     staging fits in shared memory;
+//   * per item, a block-wide scan of the row's BS^3 mask bytes lists its
+//     occupied slots in ascending order, grouped by x-plane
+//     (`list_slots`).  A plane no occupied output plane reads is not
+//     staged, an empty output plane is not computed; at the end a second
+//     kernel sums the partials of the CTAs that had an item in a fixed
+//     order.  No atomics: the same bits every run.
+// bf16 dy (`wgrad_mma_kernel`): dW[tap] = X^T dY is a product with the
+// listed voxels as K, on mma.sync m16n8k16 (f32 accumulation).  Input
+// planes land in shared memory as bf16 ((BS+2)^2 voxels of max(ci tile, 8)
+// channels; an f32 x is rounded on its way through the registers, a bf16 x
+// copied by cp.async) and dy at the listed slots as bf16 rows; both are
+// XOR-swizzled by 16-byte chunk so that the 8 rows of an ldmatrix phase
+// over consecutive voxels fall in distinct banks.  Each warp owns fixed
+// (tap, m16 tile of ci) units with every n8 tile of co; per chunk of 16
+// listed voxels it loads dY once by ldmatrix.trans and, per unit, X^T by
+// ldmatrix.trans with each lane's row address the staged voxel v + tap of
+// its own list entry: the im2col gather is an address.  Lanes past the
+// list read a zero chunk.  A co tile below 8 pads to 8 channels (ci 8
+// fills half an m16 tile): the padded rows and columns are never stored.
+// ci below 8 stays on the CUDA cores (MMA_MIN_CI).  At BS = 16 the
+// planes go through a ring, one output plane a step (a K chunk stays in
+// one plane), an f32 x's next plane loaded into registers before a step's
+// products and stored after them; at BS = 8 an item's whole halo is staged at once (10^3 x 16
+// channels x 2 B = 32 KB) and its K chunks run across its planes, one
+// barrier per item.  The accumulators stay in registers across items and
+// each is stored once, by its lane.
+// f32 dy, and bf16 dy at ci below 8 (`wgrad_partial_kernel`, unchanged;
+// under bf16 an f32 x is rounded by a pass over each staged plane): every
+// thread owns a TM x TN
+// tile of one tap's [ci, co] block and walks every KSPLIT-th listed voxel
+// over f32 planes staged by cp.async (y rows padded by 16 bytes), f32 FMAs;
+// the KSPLIT partial tiles are summed in a fixed order at the end.
 // ops/conv3.py::build compiles this file once per block side, with
 // PCGC_BS and the (ci, co) pairs to instantiate (PCGC_PAIRS) defined, into
 // one library; the entry point of each side is pcgc_conv3_wgrad_bs<BS>.
-// Measured on the H100 (PERF.md, 16^3 blocks): a training step's 64 calls
-// spend about 11 ms (f32) and 13.5 ms (bf16) in these kernels, some 6x the
-// f32 FMA bound: the x reads of 27 taps from shared memory, with the syncs
-// of each plane, bound it.  Not yet: tensor cores (mma.sync with the live
-// voxels as K), overlap of one item's first planes with the previous
-// item's arithmetic.
+// Measured on the H100: PERF.md (the conv3_wgrad rows, and how the bf16
+// redesign moved them).  Not yet: the f32 instances on the tensor cores
+// (3xTF32 on mma.sync), overlap of one item's staging with the previous
+// item's products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,24 +89,33 @@
 namespace {
 
 constexpr int THREADS = 256;            // BS^3 / 256 mask bytes each
+constexpr int WARPS = THREADS / 32;
 constexpr int ACC_MAX = 64;             // accumulators per thread
 constexpr int GRID_CTAS = 512;          // G x splits, about
 constexpr int SMEM_MAX = 232448 - 9216;  // dynamic smem, beside idx[]
                                          // (4096 slots at BS = 16)
+// the mma.sync instances keep two CTAs on an SM
+constexpr int SMEM_MMA = 232448 / 2 - 9216 - 1024;
 constexpr int RED_Y = 8;                // row phases per column in pass 2
 constexpr int AHEAD = 1;                // planes staged ahead of their use
 constexpr int NBUF = 3 + AHEAD;         // ring of staged input planes
 constexpr int DYBUF = 1 + AHEAD;        // ring of staged dy planes
+// bf16 dy with ci >= MMA_MIN_CI runs on mma.sync (a co below 8 padded to
+// 8: 16 -> 4 and the -> 1 heads); ci below it (1 -> 16, 4 -> 4, 4 -> 8)
+// on the CUDA cores, which were faster there at both block sides (an m16
+// tile of ci 4 is three quarters padding; measured, PERF.md)
+constexpr int MMA_MIN_CI = 8;
 
 // The plan of one (ci, co, x and dy element sizes, block side) instance;
 // ops/conv3.py::wgrad_plan computes the same and the launch checks that
 // they agree.
 struct Plan {
   int cit, cot;   // ci and co tiles of a split
-  int tm, tn;     // a thread's accumulator tile
-  int p, ksplit;  // thread tiles per CTA, voxel phases
+  int tm, tn;     // a thread's accumulator tile (CUDA cores)
+  int p, ksplit;  // thread tiles per CTA, voxel phases (CUDA cores)
   int splits, g;  // splits, persistent CTAs per split
   int smem;       // dynamic smem bytes
+  int mma;        // 1: the products on mma.sync m16n8k16, 0: CUDA cores
 };
 
 constexpr int pow2_ceil(int v) {
@@ -130,11 +147,39 @@ constexpr Plan plan_for(int ci, int co, int sx, int sg, int bs, int cit,
   const int smem = imax(ring + DYBUF * bs * bs * cot * sg,
                         ksplit * e * 4);
   return Plan{cit, cot, tm, tn, p, ksplit, splits,
-              imax(8, GRID_CTAS / splits), smem};
+              imax(8, GRID_CTAS / splits), smem, 0};
+}
+
+// mma.sync: channels padded to 8 (an m16 tile of ci = 8 takes its upper
+// half as zeros), a warp's units are (tap, m16 tile) pairs, each with
+// every n8 tile of the co tile; staged planes and dy rows hold bf16.  At
+// BS = 16 a ring of NBUF planes and DYBUF dy planes, as the CUDA cores
+// stage; at BS = 8 an item's whole halo (BS + 2 planes) and the dy of all
+// its slots.
+constexpr int mma_units(int cit) { return 27 * ((imax(cit, 8) + 15) / 16); }
+constexpr int mma_acc(int cit, int cot) {
+  return (mma_units(cit) + WARPS - 1) / WARPS * (imax(cot, 8) / 8) * 4;
+}
+constexpr int mma_smem(int bs, int cit, int cot) {
+  const int hs = bs + 2, cip = imax(cit, 8), cop = imax(cot, 8);
+  return bs == 8 ? hs * hs * hs * cip * 2 + bs * bs * bs * cop * 2
+                 : NBUF * hs * hs * cip * 2 + DYBUF * bs * bs * cop * 2;
 }
 
 // The first that fits: the widest co tile, then the widest ci tile.
 constexpr Plan make_plan(int ci, int co, int sx, int sg, int bs) {
+  if (sg == 2 && ci >= MMA_MIN_CI) {
+    for (int cot = co; cot >= 1; cot /= 2)
+      for (int cit = ci; cit >= 1; cit /= 2) {
+        const int smem = mma_smem(bs, cit, cot);
+        if (mma_acc(cit, cot) <= ACC_MAX && smem <= SMEM_MMA) {
+          const int splits = (ci / cit) * (co / cot);
+          return Plan{cit, cot, 0, 0, 0, 0, splits,
+                      imax(8, GRID_CTAS / splits), smem, 1};
+        }
+      }
+    return Plan{};
+  }
   for (int cot = co; cot >= 1; cot /= 2)
     for (int cit = ci; cit >= 1; cit /= 2) {
       const Plan p = plan_for(ci, co, sx, sg, bs, cit, cot);
@@ -150,8 +195,6 @@ struct Cfg {
   static constexpr int VOL = BS * BS * BS;
   static constexpr int HS = BS + 2;
   static constexpr int PLANE = HS * HS;  // voxels per staged input plane
-  static constexpr int MB = VOL / THREADS;  // mask bytes per thread: 16, 2
-  static constexpr int TPP = BS * BS / MB;  // scan threads per x-plane
   static constexpr Plan PL = make_plan(CI, CO, sizeof(TX), sizeof(TG), BS);
   static constexpr int CIT = PL.cit, COT = PL.cot;
   static constexpr int TM = PL.tm, TN = PL.tn, P = PL.p, KSPLIT = PL.ksplit;
@@ -167,6 +210,49 @@ struct Cfg {
                                 std::is_same<TG, __nv_bfloat16>::value;
   static_assert(PL.cit != 0, "no plan fits");
   static_assert(P * KSPLIT <= THREADS && TM * TN <= ACC_MAX, "plan");
+};
+
+// The mma.sync instances (bf16 dy): x staged as bf16 voxels of CIP
+// channels (NC 16-byte chunks), dy as bf16 rows of COP channels
+template <typename TX, int CI, int CO, int BS_>
+struct MCfg {
+  static_assert(BS_ == 16 || BS_ == 8, "block side");
+  static constexpr int BS = BS_;
+  static constexpr int VOL = BS * BS * BS;
+  static constexpr int HS = BS + 2;
+  static constexpr int PLANE = HS * HS;
+  static constexpr Plan PL = make_plan(CI, CO, sizeof(TX), 2, BS);
+  static constexpr int CIT = PL.cit, COT = PL.cot;
+  static constexpr int COS = CO / COT;               // co tiles
+  static constexpr int CIP = imax(CIT, 8), COP = imax(COT, 8);
+  static constexpr int NC = CIP / 8, NCO = COP / 8;  // 16-byte chunks
+  static constexpr int MT = (CIP + 15) / 16;         // m16 tiles
+  static constexpr int NT = NCO;                     // n8 tiles
+  static constexpr int UNITS = 27 * MT;              // (tap, m16 tile)
+  static constexpr int U = (UNITS + WARPS - 1) / WARPS;  // units a warp
+  static constexpr bool X4 = CIP >= 16;  // A by ldmatrix .x4, else .x2
+  // BS = 16: a ring of NBUF planes, one output plane a step; BS = 8: the
+  // whole halo, every plane in its own slot, one step per item
+  static constexpr bool WHOLE = BS == 8;
+  static constexpr int SLOTS = WHOLE ? HS : NBUF;
+  static constexpr int SLOT_B = PLANE * CIP * 2;     // bytes per plane
+  static constexpr int GBUF_B = (WHOLE ? VOL : BS * BS) * COP * 2;
+  static constexpr int RING_B = SLOTS * SLOT_B;
+  static_assert(PL.mma == 1 && PL.cit != 0, "no mma plan fits");
+  static_assert(CIT == 1 || CIT == 4 || CIT % 8 == 0, "ci tile");
+  static_assert(COT == 1 || COT == 4 || COT % 8 == 0, "co tile");
+  static_assert(PL.smem == RING_B + (WHOLE ? 1 : DYBUF) * GBUF_B, "smem");
+  static_assert(U * NT * 4 <= ACC_MAX, "accumulators");
+  // CTAs per SM the kernel is compiled for: two (at most 128 registers a
+  // thread) where the accumulators and an f32 plane's prefetch (PlaneStage,
+  // 16³ only) take at most 64 registers, and at BS = 8; else one
+  // (measured both ways per pair on a training step, PERF.md)
+  static constexpr int PREFETCH =
+      std::is_same<TX, float>::value && !WHOLE
+          ? (PLANE * NC + THREADS - 1) / THREADS * (CIT >= 8 ? 8 : 4)
+          : 0;
+  static constexpr int MIN_CTAS =
+      WHOLE || U * NT * 4 + PREFETCH <= 64 ? 2 : 1;
 };
 
 // The work items of a grid of g CTAs over n_rows live rows: (row, chunk of
@@ -238,6 +324,32 @@ __device__ __forceinline__ void load_f(const T* p, float (&v)[N]) {
   }
 #pragma unroll
   for (int j = 0; j < N; ++j) v[j] = to_f(tmp[j]);
+}
+
+// N 8 x 8 b16 matrices by ldmatrix .trans (N = 4 or 2): lanes 8m .. 8m + 7
+// address the rows of matrix m; a row is 16 bytes of one voxel (8 channels)
+template <int N>
+__device__ __forceinline__ void ldsm(uint32_t addr, uint32_t* r) {
+  if constexpr (N == 4)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1])
+        : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // gather halo plane p (halo x coordinate, 0..BS+1) of block row `rows`,
@@ -315,6 +427,392 @@ __device__ __forceinline__ void stage_dy(const TG* __restrict__ dy,
   }
 }
 
+// The occupied slots of the row at flat voxel index row0 into idx[],
+// ascending, and where each x-plane's slots start into pstart[] (pstart[BS]
+// is their count): thread t scans mask bytes MB t .. MB t + MB - 1 (plane
+// t / TPP), a block-wide exclusive scan places them.  Ends on a barrier.
+template <int BS>
+__device__ __forceinline__ void list_slots(const uint8_t* __restrict__ mask,
+                                           size_t row0, uint16_t* idx,
+                                           int* pstart, int* wsum, int t) {
+  constexpr int MB = BS * BS * BS / THREADS, TPP = BS * BS / MB;
+  const int lane = t & 31, warp = t >> 5;
+  uint32_t mw[4] = {0u, 0u, 0u, 0u};
+  if constexpr (MB == 16) {
+    const uint4 m4 = reinterpret_cast<const uint4*>(mask + row0)[t];
+    mw[0] = m4.x, mw[1] = m4.y, mw[2] = m4.z, mw[3] = m4.w;
+  } else {
+    static_assert(MB == 2, "mask bytes per thread");
+    mw[0] = reinterpret_cast<const uint16_t*>(mask + row0)[t];
+  }
+  int c = 0;
+#pragma unroll
+  for (int k = 0; k < MB; ++k)
+    c += ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) != 0;
+  int incl = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  int pos = incl - c;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) pos += w < warp ? wsum[w] : 0;
+  if (t % TPP == 0) pstart[t / TPP] = pos;
+  if (t == THREADS - 1) pstart[BS] = pos + c;
+#pragma unroll
+  for (int k = 0; k < MB; ++k)
+    if ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) idx[pos++] = MB * t + k;
+  __syncthreads();
+}
+
+// Byte offset of 16-byte chunk c of staged row p, rows of nc chunks: the
+// chunk index is XOR-ed with a function of p that gives the 8 rows p ..
+// p + 7 eight distinct bank groups, so an ldmatrix phase over consecutive
+// rows (a z run of a surface, or consecutive dy rows) is conflict-free.
+template <int NCH>
+__device__ __forceinline__ uint32_t swz(int p, int c) {
+  constexpr int PER = 8 / NCH;  // rows per 128 bytes
+  return static_cast<uint32_t>(p * NCH * 16 +
+                               ((c ^ ((p / PER) & (NCH - 1))) << 4));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // cvt.rn.bf16x2
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Halo plane p of block row `rows`, channels c0 .. c0 + CIT - 1, gathered
+// as bf16 into a staged plane (PLANE rows of NC swizzled 16-byte chunks).
+// An f32 x goes through the registers and is rounded there (cvt.rn.bf16x2,
+// the rounding conv3_wgrad_plain does), in two halves so that a plane's
+// loads can fly while the previous plane's products run: `load` issues
+// this thread's loads, `store` rounds them and writes them to the plane at
+// `slot`.  A bf16 x is copied by cp.async (`copy`).  The channels past CIT
+// of a narrow voxel are left as they are: they only feed products that
+// are not stored.
+template <typename TX, int CI, int CIT, int BS>
+struct PlaneStage {
+  static constexpr int HS = BS + 2, PLANE = HS * HS, VOL = BS * BS * BS;
+  static constexpr int NC = CIT >= 8 ? CIT / 8 : 1;
+  static constexpr int TASKS = PLANE * NC;
+  static constexpr int ITER = (TASKS + THREADS - 1) / THREADS;
+  float4 v[ITER][CIT >= 8 ? 2 : 1];
+
+  // the source of this thread's i-th task of plane p, or nullptr
+  __device__ __forceinline__ static const TX* src(const TX* __restrict__ x,
+                                                  const int* rows, int p,
+                                                  int c0, int k) {
+    if (k >= TASKS) return nullptr;
+    int nx, sx, ny, sy, nz, sz;
+    const int r = k / NC, c = k % NC;
+    halo_src<BS>(p, nx, sx);
+    halo_src<BS>(r / HS, ny, sy);
+    halo_src<BS>(r % HS, nz, sz);
+    const size_t row = rows[nx * 9 + ny * 3 + nz];
+    return x + (row * VOL + (sx * BS + sy) * BS + sz) * CI + c0 + c * 8;
+  }
+
+  __device__ __forceinline__ void load(const float* __restrict__ x,
+                                       const int* rows, int p, int c0,
+                                       int t) {
+#pragma unroll
+    for (int i = 0; i < ITER; ++i) {
+      const float* s = src(x, rows, p, c0, t + i * THREADS);
+      if (s == nullptr) continue;
+      if constexpr (CIT >= 8) {
+        v[i][0] = __ldg(reinterpret_cast<const float4*>(s));
+        v[i][1] = __ldg(reinterpret_cast<const float4*>(s) + 1);
+      } else if constexpr (CIT == 4) {
+        v[i][0] = __ldg(reinterpret_cast<const float4*>(s));
+      } else {
+        v[i][0].x = __ldg(s);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned char* slot, int t) const {
+#pragma unroll
+    for (int i = 0; i < ITER; ++i) {
+      const int k = t + i * THREADS;
+      if (k >= TASKS) continue;
+      unsigned char* dst = slot + swz<NC>(k / NC, k % NC);
+      if constexpr (CIT >= 8) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(
+            pack_bf16(v[i][0].x, v[i][0].y), pack_bf16(v[i][0].z, v[i][0].w),
+            pack_bf16(v[i][1].x, v[i][1].y), pack_bf16(v[i][1].z, v[i][1].w));
+      } else if constexpr (CIT == 4) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(
+            pack_bf16(v[i][0].x, v[i][0].y), pack_bf16(v[i][0].z, v[i][0].w));
+      } else {
+        *reinterpret_cast<__nv_bfloat16*>(dst) = __float2bfloat16_rn(v[i][0].x);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void copy(const TX* __restrict__ x,
+                                              const int* rows, int p,
+                                              int c0, unsigned char* slot,
+                                              int t) {
+#pragma unroll
+    for (int i = 0; i < ITER; ++i) {
+      const int k = t + i * THREADS;
+      const TX* s = src(x, rows, p, c0, k);
+      if (s == nullptr) continue;
+      unsigned char* dst = slot + swz<NC>(k / NC, k % NC);
+      if constexpr (CIT >= 8)
+        cp_async<16>(smem_u32(dst), s);
+      else if constexpr (CIT == 4)
+        cp_async<8>(smem_u32(dst), s);
+      else  // one bf16 channel: cp.async moves 4, 8 or 16 bytes
+        *reinterpret_cast<TX*>(dst) = *s;
+    }
+  }
+};
+
+// gather bf16 dy at the listed slots idx[0 .. n) of the row at `row0`,
+// co tile co0 .., into buf: row j of NCO swizzled 16-byte chunks
+template <int CO, int COT>
+__device__ __forceinline__ void stage_dy_bf16(
+    const __nv_bfloat16* __restrict__ dy, const uint16_t* idx, size_t row0,
+    int n, int co0, unsigned char* buf, int t) {
+  constexpr int NCO = COT >= 8 ? COT / 8 : 1;
+  for (int k = t; k < n * NCO; k += THREADS) {
+    const int j = k / NCO, c = k % NCO;
+    const __nv_bfloat16* src = dy + (row0 + idx[j]) * CO + co0 + c * 8;
+    unsigned char* dst = buf + swz<NCO>(j, c);
+    if constexpr (COT >= 8)
+      cp_async<16>(smem_u32(dst), src);
+    else if constexpr (COT == 4)
+      cp_async<8>(smem_u32(dst), src);
+    else
+      *reinterpret_cast<__nv_bfloat16*>(dst) = *src;
+  }
+}
+
+// acc[u][nt] += X[v + tap]^T dY[v] over the listed slots idx[kb .. ke) of
+// the staged planes: K chunks of 16 listed voxels, in list order.  Warp w
+// owns the units u = w, w + WARPS, ... (unit = tap * MT + m16 tile) and
+// every n8 tile.  dY comes by ldmatrix.trans from the dy rows at list
+// position k - kb, X^T by ldmatrix.trans with each lane's address the
+// staged voxel v + tap of its own list entry: the gather is an address.
+// Lanes past ke point at the zero chunk.
+template <typename C>
+__device__ __forceinline__ void mma_chunks(float (&acc)[C::U][C::NT][4],
+                                           const uint16_t* idx, int kb,
+                                           int ke, uint32_t ring,
+                                           uint32_t dyb, uint32_t zero,
+                                           int lane, int warp) {
+  constexpr int BS = C::BS, HS = C::HS;
+  // A: lane -> (k, 16-byte chunk) of its ldmatrix row
+  const int ka = C::X4 ? (lane & 7) | ((lane >> 4) << 3) : (lane & 15);
+  const int ca = C::X4 ? (lane >> 3) & 1 : 0;
+  // B: lane -> (k, n8 tile within a pair)
+  const int kbb = lane & 15, nb = lane >> 4;
+#pragma unroll 1
+  for (int k0 = kb; k0 < ke; k0 += 16) {
+    uint32_t b[C::NT][2];
+    {
+      const bool in = k0 + kbb < ke;
+      const int j = k0 - kb + kbb;
+      if constexpr (C::NT == 1) {
+        uint32_t r[2];
+        ldsm<2>(in ? dyb + swz<C::NCO>(j, 0) : zero, r);
+        b[0][0] = r[0], b[0][1] = r[1];
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < C::NT; nt += 2) {
+          uint32_t r[4];
+          ldsm<4>(in ? dyb + swz<C::NCO>(j, nt + nb) : zero, r);
+          b[nt][0] = r[0], b[nt][1] = r[1];
+          b[nt + 1][0] = r[2], b[nt + 1][1] = r[3];
+        }
+      }
+    }
+    const bool in = k0 + ka < ke;
+    const int v = in ? idx[k0 + ka] : 0;
+    const int vx = v / (BS * BS), vy = (v / BS) % BS, vz = v % BS;
+#pragma unroll
+    for (int j = 0; j < C::U; ++j) {
+      const int u = warp + j * WARPS;
+      if (u >= C::UNITS) break;  // warp-uniform
+      const int tap = u / C::MT, mt = u % C::MT;
+      const int tx = tap / 9, ty = (tap / 3) % 3, tz = tap % 3;
+      const int p = (vy + ty) * HS + vz + tz;
+      const uint32_t addr =
+          in ? ring + ((vx + tx) % C::SLOTS) * C::SLOT_B +
+                   swz<C::NC>(p, 2 * mt + ca)
+             : zero;
+      uint32_t a[4];
+      if constexpr (C::X4) {
+        ldsm<4>(addr, a);
+      } else {  // ci <= 8: the upper m8 rows are zero
+        uint32_t r[2];
+        ldsm<2>(addr, r);
+        a[0] = r[0], a[1] = 0u, a[2] = r[1], a[3] = 0u;
+      }
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt)
+        mma_bf16(acc[j][nt], a, b[nt][0], b[nt][1]);
+    }
+  }
+}
+
+// The bf16 instances: as wgrad_partial_kernel walks items and lists their
+// slots, with the sums on mma.sync m16n8k16 (f32 accumulation) over bf16
+// staged planes.  Each warp's fragments stay in registers across the
+// items and are written to part[b, tap, ci, co] at the end, each entry by
+// one thread: no k split to sum.
+template <typename TX, int CI, int CO, int BS>
+__global__ void __launch_bounds__(THREADS, MCfg<TX, CI, CO, BS>::MIN_CTAS)
+    wgrad_mma_kernel(const TX* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ dy,
+                     const int* __restrict__ nbrs,
+                     const uint8_t* __restrict__ mask,
+                     const int* __restrict__ count,
+                     float* __restrict__ part) {
+  using C = MCfg<TX, CI, CO, BS>;
+  constexpr int VOL = C::VOL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  unsigned char* gbuf = smem + C::RING_B;
+  __shared__ uint16_t idx[VOL];   // the row's occupied slots, ascending
+  __shared__ int pstart[BS + 1];  // where each x-plane's slots start
+  __shared__ int rows[27];
+  __shared__ int wsum[WARPS];
+  __shared__ __align__(16) uint32_t zrow[4];  // the zero chunk
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ci0 = blockIdx.y / C::COS * C::CIT;
+  const int co0 = blockIdx.y % C::COS * C::COT;
+  if (t < 4) zrow[t] = 0u;  // before the first scan's barriers
+  const uint32_t ring_s = smem_u32(ring), gbuf_s = smem_u32(gbuf),
+                 zero_s = smem_u32(zrow);
+
+  float acc[C::U][C::NT][4];
+#pragma unroll
+  for (int j = 0; j < C::U; ++j)
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
+
+  int xp;
+  const int items = work_items<BS>(*count, gridDim.x, xp),
+            per_row = BS / xp;
+  if (blockIdx.x >= items) return;  // its partial is never read
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int i = it / per_row, x0 = it % per_row * xp;
+    const size_t row0 = (size_t)i * VOL;
+    if (t < 27) rows[t] = nbrs[(size_t)i * 27 + t];
+    list_slots<BS>(mask, row0, idx, pstart, wsum, t);
+    uint32_t occ = 0;  // this item's occupied output planes
+    for (int p = x0; p < x0 + xp; ++p)
+      occ |= (uint32_t)(pstart[p + 1] > pstart[p]) << p;
+    if (occ == 0u) {
+      __syncthreads();  // rows, wsum, pstart, idx are rewritten
+      continue;
+    }
+    auto needed = [&](int q) {  // input plane q is read by outputs q-2 .. q
+      const int lo = max(0, q - 2), hi = min(BS - 1, q);
+      return ((occ >> lo) & ((2u << (hi - lo)) - 1u)) != 0u;
+    };
+    using Stage = PlaneStage<TX, CI, C::CIT, BS>;
+    constexpr bool F32 = std::is_same<TX, float>::value;
+    [[maybe_unused]] Stage st;  // an f32 plane on its way through registers
+    auto slot = [&](int q) { return ring + (q % C::SLOTS) * C::SLOT_B; };
+    auto stage_plane = [&](int q) {  // plane q, landed or in flight
+      if constexpr (F32) {
+        st.load(x, rows, q, ci0, t);
+        st.store(slot(q), t);
+      } else {
+        Stage::copy(x, rows, q, ci0, slot(q), t);
+      }
+    };
+    const int qend = x0 + xp + 2;  // input planes x0 .. qend - 1
+    if constexpr (C::WHOLE) {
+      // the item's planes and the dy of all its slots, then one step
+      for (int q = x0; q < qend; ++q)
+        if (needed(q)) stage_plane(q);
+      const int kb = pstart[x0], ke = pstart[x0 + xp];
+      stage_dy_bf16<CO, C::COT>(dy, idx + kb, row0, ke - kb, co0, gbuf, t);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      mma_chunks<C>(acc, idx, kb, ke, ring_s, gbuf_s, zero_s, lane, warp);
+      __syncthreads();  // the planes, dy and the list are rewritten
+      continue;
+    } else {
+      auto dybuf = [&](int xo) { return gbuf + (xo % DYBUF) * C::GBUF_B; };
+      auto dy_of = [&](int xo) {
+        stage_dy_bf16<CO, C::COT>(dy, idx + pstart[xo], row0,
+                                  pstart[xo + 1] - pstart[xo], co0,
+                                  dybuf(xo), t);
+      };
+#pragma unroll 1
+      for (int q = x0; q < x0 + 2 + AHEAD; ++q) {
+        if (q < qend && needed(q)) stage_plane(q);
+        if (q >= x0 + 2 && q - 2 < x0 + xp) dy_of(q - 2);
+        cp_async_commit();
+      }
+      // an f32 x: the next plane's loads are issued before this plane's
+      // products and stored after them
+#pragma unroll 1
+      for (int xo = x0; xo < x0 + xp; ++xo) {
+        // AHEAD planes ahead, into the slots output plane xo - 1 read
+        const int qn = xo + 2 + AHEAD;
+        const bool next = qn < qend && needed(qn);
+        if (next) {
+          if constexpr (F32)
+            st.load(x, rows, qn, ci0, t);
+          else
+            Stage::copy(x, rows, qn, ci0, slot(qn), t);
+        }
+        if (xo + AHEAD < x0 + xp) dy_of(xo + AHEAD);
+        cp_async_commit();
+        if (!((occ >> xo) & 1u)) {
+          if constexpr (F32)
+            if (next) st.store(slot(qn), t);
+          continue;
+        }
+        cp_async_wait<AHEAD>();  // planes xo .. xo + 2, dy of xo (own part)
+        __syncthreads();         // ... everyone's
+        mma_chunks<C>(acc, idx, pstart[xo], pstart[xo + 1], ring_s,
+                      smem_u32(dybuf(xo)), zero_s, lane, warp);
+        if constexpr (F32)  // a slot no warp reads for plane xo
+          if (next) st.store(slot(qn), t);
+        __syncthreads();  // the ring slot and the dy buffer are reused
+      }
+      cp_async_wait<0>();  // no copy of this item may land in the next one's
+      __syncthreads();
+    }
+  }
+
+  // fragment (unit, n8 tile): lane 4g + q holds (m g, n 2q, 2q + 1) and
+  // (m g + 8, n 2q, 2q + 1) of its m16 x n8 tile
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < C::U; ++j) {
+    const int u = warp + j * WARPS;
+    if (u >= C::UNITS) break;
+    const int tap = u / C::MT, mt = u % C::MT;
+    float* out = part + ((size_t)blockIdx.x * 27 + tap) * CI * CO;
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mt * 16 + g + 8 * h, n = nt * 8 + 2 * q;
+        if (m >= C::CIT) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (n + e < C::COT)
+            out[(ci0 + m) * CO + co0 + n + e] = acc[j][nt][2 * h + e];
+      }
+  }
+}
+
 template <typename TX, typename TG, int CI, int CO, int BS>
 __global__ void __launch_bounds__(THREADS)
     wgrad_partial_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
@@ -323,16 +821,16 @@ __global__ void __launch_bounds__(THREADS)
                          const int* __restrict__ count,
                          float* __restrict__ part) {
   using C = Cfg<TX, TG, CI, CO, BS>;
-  constexpr int VOL = C::VOL, MB = C::MB;
+  constexpr int VOL = C::VOL;
   extern __shared__ __align__(16) unsigned char smem[];
   TX* ring = reinterpret_cast<TX*>(smem);
   TG* gbuf = reinterpret_cast<TG*>(smem + C::RING * sizeof(TX));
   __shared__ uint16_t idx[VOL];   // the row's occupied slots, ascending
   __shared__ int pstart[BS + 1];  // where each x-plane's slots start
   __shared__ int rows[27];
-  __shared__ int wsum[THREADS / 32];
+  __shared__ int wsum[WARPS];
 
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t = threadIdx.x;
   // the split: ci tile ci0 .., co tile co0 .. (co fastest)
   const int ci0 = blockIdx.y / C::COS * C::CIT;
   const int co0 = blockIdx.y % C::COS * C::COT;
@@ -358,37 +856,7 @@ __global__ void __launch_bounds__(THREADS)
     const int i = it / per_row, x0 = it % per_row * xp;
     const size_t row0 = (size_t)i * VOL;
     if (t < 27) rows[t] = nbrs[(size_t)i * 27 + t];
-    // the row's occupied slots, ascending: thread t scans slots MB t ..
-    // MB t + MB - 1 (plane t / TPP), a block-wide exclusive scan places them
-    uint32_t mw[4] = {0u, 0u, 0u, 0u};
-    if constexpr (MB == 16) {
-      const uint4 m4 = reinterpret_cast<const uint4*>(mask + row0)[t];
-      mw[0] = m4.x, mw[1] = m4.y, mw[2] = m4.z, mw[3] = m4.w;
-    } else {
-      static_assert(MB == 2, "mask bytes per thread");
-      mw[0] = reinterpret_cast<const uint16_t*>(mask + row0)[t];
-    }
-    int c = 0;
-#pragma unroll
-    for (int k = 0; k < MB; ++k)
-      c += ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) != 0;
-    int incl = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
-    }
-    if (lane == 31) wsum[warp] = incl;
-    __syncthreads();
-    int pos = incl - c;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) pos += w < warp ? wsum[w] : 0;
-    if (t % C::TPP == 0) pstart[t / C::TPP] = pos;
-    if (t == THREADS - 1) pstart[BS] = pos + c;
-#pragma unroll
-    for (int k = 0; k < MB; ++k)
-      if ((mw[k / 4] >> (8 * (k % 4))) & 0xffu) idx[pos++] = MB * t + k;
-    __syncthreads();
+    list_slots<BS>(mask, row0, idx, pstart, wsum, t);
     uint32_t occ = 0;  // this item's occupied output planes
     for (int p = x0; p < x0 + xp; ++p)
       occ |= (uint32_t)(pstart[p + 1] > pstart[p]) << p;
@@ -508,23 +976,36 @@ template <typename TX, typename TG, int CI, int CO, int BS>
 int launch(const void* x, const void* dy, const void* nbrs, const void* mask,
            const void* count, void* part, void* out, const int* plan,
            cudaStream_t stream) {
-  using C = Cfg<TX, TG, CI, CO, BS>;
-  if (plan[0] != C::CIT || plan[1] != C::COT || plan[2] != C::PL.g)
+  constexpr Plan PL = make_plan(CI, CO, sizeof(TX), sizeof(TG), BS);
+  if (plan[0] != PL.cit || plan[1] != PL.cot || plan[2] != PL.g ||
+      plan[3] != PL.mma)
     return -2;  // the wrapper's plan is not this instance's
-  auto kern = wgrad_partial_kernel<TX, TG, CI, CO, BS>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::PL.smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<dim3(C::PL.g, C::PL.splits), THREADS, C::PL.smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TG*>(dy),
-      static_cast<const int*>(nbrs), static_cast<const uint8_t*>(mask),
-      static_cast<const int*>(count), static_cast<float*>(part));
+  cudaError_t e;
+  if constexpr (PL.mma) {
+    auto kern = wgrad_mma_kernel<TX, CI, CO, BS>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             PL.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<dim3(PL.g, PL.splits), THREADS, PL.smem, stream>>>(
+        static_cast<const TX*>(x), static_cast<const __nv_bfloat16*>(dy),
+        static_cast<const int*>(nbrs), static_cast<const uint8_t*>(mask),
+        static_cast<const int*>(count), static_cast<float*>(part));
+  } else {
+    auto kern = wgrad_partial_kernel<TX, TG, CI, CO, BS>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             PL.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<dim3(PL.g, PL.splits), THREADS, PL.smem, stream>>>(
+        static_cast<const TX*>(x), static_cast<const TG*>(dy),
+        static_cast<const int*>(nbrs), static_cast<const uint8_t*>(mask),
+        static_cast<const int*>(count), static_cast<float*>(part));
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_e = 27 * CI * CO;
   wgrad_reduce_kernel<BS><<<(n_e + 31) / 32, dim3(32, RED_Y), 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(count),
-      C::PL.g, static_cast<float*>(out), n_e);
+      PL.g, static_cast<float*>(out), n_e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -561,8 +1042,8 @@ int by_pair(const void* x, const void* dy, const void* nbrs,
 // (x_bf16 = 0) or bf16 (x_bf16 = 1), as the grid stores it; dy [nb, BS^3,
 // co] in the compute dtype, f32 (dy_bf16 = 0) or bf16 (dy_bf16 = 1); nbrs
 // int32 [nb, 27]; mask bool [nb, BS^3] (16-byte aligned); count int32 [1]
-// on the device; plan int32[3] on the host: (ci tile, co tile, G) of
-// ops/conv3.py::wgrad_plan; part f32 [G, 27, ci, co] scratch; out f32
+// on the device; plan int32[4] on the host: (ci tile, co tile, G, mma)
+// of ops/conv3.py::wgrad_plan; part f32 [G, 27, ci, co] scratch; out f32
 // [27, ci, co].  Returns 0, a cudaError_t of a launch, -1 for an instance
 // it does not have, or -2 where `plan` is not the instance's.
 extern "C" int PCGC_CAT(pcgc_conv3_wgrad_bs, PCGC_BS)(

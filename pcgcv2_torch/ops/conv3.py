@@ -53,11 +53,14 @@ live slots (occupied slots of rows < count, where the forward wrote):
   masks its output (`BlockGrid.with_feats`), so the gradient at the other
   slots would be discarded upstream anyway;
 * dW is csrc/conv3_wgrad.cu (`conv3_wgrad`; at BS = 8 the model's forward
-  pairs, `WGRAD_PAIRS`), on the CUDA cores: G
-  persistent CTAs per channel split (`wgrad_plan`) walk the live rows,
-  read each once for all 27 taps over cp.async-staged input planes, and
-  sum in a fixed order; x is read as the grid stores it.  Its plain
-  version is `conv3_wgrad_plain`;
+  pairs, `WGRAD_PAIRS`): G persistent CTAs per channel split
+  (`wgrad_plan`) walk the live rows, read each once for all 27 taps over
+  staged input planes, and sum in a fixed order; x is read as the grid
+  stores it.  bf16 dy (the training step's) runs on the tensor cores,
+  mma.sync m16n8k16 with the listed voxels as K over bf16 planes, each
+  lane's ldmatrix row the staged voxel v + tap of its own list entry;
+  f32 dy on the CUDA cores, f32 FMAs.  Its plain version is
+  `conv3_wgrad_plain`;
 * dbias is one masked sum.
 """
 
@@ -744,22 +747,28 @@ class WgradPlan(NamedTuple):
 
     ci_tile: int
     co_tile: int
-    tm: int      # a thread's accumulator tile, tm x tn floats
+    tm: int      # a thread's accumulator tile, tm x tn floats (CUDA cores)
     tn: int
-    tiles: int   # thread tiles per CTA
-    ksplit: int  # voxel phases: threads per tile
+    tiles: int   # thread tiles per CTA (CUDA cores)
+    ksplit: int  # voxel phases: threads per tile (CUDA cores)
     splits: int  # (ci tile, co tile) pairs
     g: int       # persistent CTAs per split; rows of the `part` workspace
     smem: int    # dynamic shared memory per CTA, bytes
+    mma: bool    # the products on mma.sync m16n8k16, else the CUDA cores
 
 
 WGRAD_THREADS = 256
+WGRAD_WARPS = WGRAD_THREADS // 32
 WGRAD_ACC_MAX = 64  # accumulators per thread
 # dynamic shared memory a CTA may use beside its list of slots (8 KB at
-# BS = 16)
+# BS = 16); an mma.sync instance half of the SM's, so that two CTAs share it
 WGRAD_SMEM_MAX = 232448 - 9216
+WGRAD_SMEM_MMA = 232448 // 2 - 9216 - 1024
 _WG_CTAS = 512  # G x splits, about
 _WG_AHEAD = 1   # planes staged ahead of their use
+# bf16 dy runs on mma.sync where ci >= WGRAD_MMA_MIN_CI (a co below 8
+# padded to 8), as the kernel's MMA_MIN_CI; below it on the CUDA cores
+WGRAD_MMA_MIN_CI = 8
 
 
 def _wgrad_plan_for(ci, co, sx, sg, bs, cit, cot) -> WgradPlan:
@@ -781,29 +790,65 @@ def _wgrad_plan_for(ci, co, sx, sg, bs, cit, cot) -> WgradPlan:
     smem = max(ring + (1 + _WG_AHEAD) * bs * bs * cot * sg,
                ksplit * e * 4)
     return WgradPlan(cit, cot, tm, tn, tiles, ksplit, splits,
-                     max(8, _WG_CTAS // splits), smem)
+                     max(8, _WG_CTAS // splits), smem, False)
+
+
+def wgrad_mma_units(ci_tile: int) -> int:
+    """(tap, m16 tile) units of an mma.sync CTA: ci padded to 8, an m16
+    tile of ci 8 half zeros."""
+    return 27 * -(-max(ci_tile, 8) // 16)
+
+
+def wgrad_mma_acc(ci_tile: int, co_tile: int) -> int:
+    """f32 accumulators per thread of an mma.sync CTA: each warp owns
+    every WGRAD_WARPS-th unit with every n8 tile of the co tile (co padded
+    to 8), 4 floats per m16 x n8 fragment and lane."""
+    units = wgrad_mma_units(ci_tile)
+    return -(-units // WGRAD_WARPS) * (max(co_tile, 8) // 8) * 4
+
+
+def wgrad_mma_smem(bs: int, ci_tile: int, co_tile: int) -> int:
+    """Dynamic shared memory of an mma.sync CTA: bf16 voxels of max(ci
+    tile, 8) channels, bf16 dy rows of max(co tile, 8).  16^3: a ring of 4
+    staged (bs+2)^2 planes and dy of 2 planes' bs^2 slots; 8^3: an item's
+    whole (bs+2)^3 halo and the dy of its bs^3 slots."""
+    hs, cip, cop = bs + 2, max(ci_tile, 8), max(co_tile, 8)
+    if bs == 8:
+        return hs ** 3 * cip * 2 + bs ** 3 * cop * 2
+    return (3 + _WG_AHEAD) * hs * hs * cip * 2 + (1 + _WG_AHEAD) * bs * bs * cop * 2
 
 
 @functools.lru_cache(maxsize=None)
 def wgrad_plan(ci: int, co: int, x_dtype, compute_dtype,
-               bs: Optional[int] = None) -> WgradPlan:
+               bs: Optional[int] = None,
+               mma_min_ci: Optional[int] = None) -> WgradPlan:
     """The split of conv3_wgrad.cu for ci, co in {1, 4, 8, 16, 32, 64}, x
     stored in `x_dtype` and dy in `compute_dtype`, at block side `bs`
     (default blocks.BS): the widest co tile, then the widest ci tile, that
-    keeps at most WGRAD_ACC_MAX accumulators per thread and fits a ring of
-    4 staged x planes and two dy planes in WGRAD_SMEM_MAX bytes of shared
-    memory."""
+    fits.  bf16 dy with ci >= `mma_min_ci` (default WGRAD_MMA_MIN_CI)
+    runs on mma.sync: at most WGRAD_ACC_MAX
+    accumulators per thread (`wgrad_mma_acc`) and `wgrad_mma_smem` within
+    WGRAD_SMEM_MMA.  The rest runs on the CUDA cores: at most
+    WGRAD_ACC_MAX accumulators per thread and a ring of 4 staged x planes
+    and two dy planes within WGRAD_SMEM_MAX."""
     bs = bs or B.BS
+    mma_min_ci = WGRAD_MMA_MIN_CI if mma_min_ci is None else mma_min_ci
     sx, sg = x_dtype.itemsize, compute_dtype.itemsize
-    cot = co
-    while cot >= 1:
-        cit = ci
-        while cit >= 1:
+    tiles = [(cot, cit) for cot in (64, 32, 16, 8, 4, 2, 1) if cot <= co
+             for cit in (64, 32, 16, 8, 4, 2, 1) if cit <= ci]
+    if sg == 2 and ci >= mma_min_ci:
+        for cot, cit in tiles:
+            smem = wgrad_mma_smem(bs, cit, cot)
+            if (wgrad_mma_acc(cit, cot) <= WGRAD_ACC_MAX
+                    and smem <= WGRAD_SMEM_MMA):
+                splits = (ci // cit) * (co // cot)
+                return WgradPlan(cit, cot, 0, 0, 0, 0, splits,
+                                 max(8, _WG_CTAS // splits), smem, True)
+    else:
+        for cot, cit in tiles:
             p = _wgrad_plan_for(ci, co, sx, sg, bs, cit, cot)
             if p.tm * p.tn <= WGRAD_ACC_MAX and p.smem <= WGRAD_SMEM_MAX:
                 return p
-            cit //= 2
-        cot //= 2
     raise NotImplementedError(f"no conv3_wgrad plan for ci={ci} co={co}")
 
 
@@ -853,7 +898,8 @@ def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
     slots only.  CPU tensors take `conv3_wgrad_plain`; CUDA tensors launch
     csrc/conv3_wgrad.cu (the pairs of `WGRAD_PAIRS`; x read as the grid
     stores it, rounded to bf16 in the kernel under bf16 compute) with
-    `wgrad_plan`'s split, or raise.  Counts launches in
+    `wgrad_plan`'s split, on mma.sync where the plan says `mma` (bf16
+    compute) and on the CUDA cores otherwise, or raise.  Counts launches in
     `conv3_wgrad.launches`: like `conv3.launches`, at a CUDA graph's
     capture and not at its replays."""
     cd = compute_dtype or B.COMPUTE_DTYPE
@@ -867,7 +913,8 @@ def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
     plan = wgrad_plan(ci, co, x.dtype, cd)
     part = torch.empty((plan.g, 27, ci, co), dtype=torch.float32, device=dev)
     out = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
-    sel = (ctypes.c_int * 3)(plan.ci_tile, plan.co_tile, plan.g)
+    sel = (ctypes.c_int * 4)(plan.ci_tile, plan.co_tile, plan.g,
+                             int(plan.mma))
     rc = getattr(_load(), f"pcgc_conv3_wgrad_bs{B.BS}")(
         x.data_ptr(), g.data_ptr(), nbrs.data_ptr(), mask.data_ptr(),
         bg.count.data_ptr(), part.data_ptr(), out.data_ptr(),

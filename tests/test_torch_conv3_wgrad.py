@@ -2,8 +2,10 @@
 (csrc/conv3_wgrad.cu), on the CPU.
 
 `wgrad_plan` mirrors the kernel's own `make_plan`: every CTA computes the
-27 taps of one (ci tile, co tile) split, each thread a tm x tn tile of one
-tap's block, over every ksplit-th voxel.  These tests walk that mapping as
+27 taps of one (ci tile, co tile) split; on the CUDA cores (f32 dy) each
+thread a tm x tn tile of one tap's block, over every ksplit-th voxel, on
+mma.sync (bf16 dy) each warp the m16 x n8 fragments of its (tap, m16
+tile) units (tests/test_torch_conv3_wgrad_tc.py emulates that path).  These tests walk that mapping as
 the kernel does and check that it covers every entry of dW exactly once
 and fits the card.  The kernel's results are held against
 `conv3_wgrad_plain` by chip_smoke.py phase 7a, and `conv3_wgrad_plain`
@@ -17,6 +19,43 @@ from pcgcv2_torch.ops import blocks as TB
 from pcgcv2_torch.ops import conv3 as TK
 
 CHANNELS = (1, 4, 8, 16, 32, 64)
+
+
+def _mma_entries(p):
+    """Flat [tap, ci_tile, co_tile] entries that an mma.sync CTA's warps
+    store: warp w owns the units w, w + 8, ... (tap, m16 tile) with every
+    n8 tile; lane 4g + q holds rows g, g + 8 and columns 2q, 2q + 1 of each
+    m16 x n8 fragment; rows and columns past the tiles are padding."""
+    mt = -(-max(p.ci_tile, 8) // 16)
+    out = []
+    for w in range(TK.WGRAD_WARPS):
+        for u in range(w, TK.wgrad_mma_units(p.ci_tile), TK.WGRAD_WARPS):
+            tap = u // mt
+            for nt in range(max(p.co_tile, 8) // 8):
+                for lane in range(32):
+                    for r in range(4):
+                        m = u % mt * 16 + lane // 4 + 8 * (r // 2)
+                        n = nt * 8 + 2 * (lane % 4) + r % 2
+                        if m < p.ci_tile and n < p.co_tile:
+                            out.append((tap * p.ci_tile + m) * p.co_tile + n)
+    return np.array(out)
+
+
+def _check_tiles(p, bs):
+    """One CTA's tiles cover its 27 x ci_tile x co_tile sums once and fit:
+    the CUDA cores' thread tiles (k-split over the voxels) and ring of 4
+    planes with y rows padded by 16 bytes, or (bf16 dy) the mma.sync warp
+    fragments and bf16 planes within half an SM's shared memory."""
+    if p.mma:
+        ent = _mma_entries(p)
+        assert TK.wgrad_mma_acc(p.ci_tile, p.co_tile) <= TK.WGRAD_ACC_MAX
+        assert p.smem == TK.wgrad_mma_smem(bs, p.ci_tile, p.co_tile)
+        assert p.smem <= TK.WGRAD_SMEM_MMA
+    else:
+        ent = _thread_entries(p, p.ci_tile, p.co_tile).ravel()
+        assert p.tiles * p.ksplit <= TK.WGRAD_THREADS
+        assert p.tm * p.tn <= TK.WGRAD_ACC_MAX
+    assert np.array_equal(np.sort(ent), np.arange(27 * p.ci_tile * p.co_tile))
 
 
 def _thread_entries(p, ci_tile, co_tile):
@@ -46,12 +85,10 @@ def test_wgrad_plan_covers_dw_once_and_fits(ci, co, x_dtype, cd):
     p = TK.wgrad_plan(ci, co, x_dtype, cd)
     assert ci % p.ci_tile == 0 and co % p.co_tile == 0
     assert p.splits == (ci // p.ci_tile) * (co // p.co_tile)
-    # the threads of a CTA cover its 27 x ci_tile x co_tile sums once
-    ent = _thread_entries(p, p.ci_tile, p.co_tile)
-    assert np.array_equal(np.sort(ent.ravel()),
-                          np.arange(27 * p.ci_tile * p.co_tile))
-    assert p.tiles * p.ksplit <= TK.WGRAD_THREADS
-    assert p.tm * p.tn <= TK.WGRAD_ACC_MAX
+    # the threads (or warps) of a CTA cover its 27 x ci_tile x co_tile
+    # sums once
+    _check_tiles(p, 16)
+    assert p.mma == (cd == BF16 and ci >= TK.WGRAD_MMA_MIN_CI)
     # the splits (co tile fastest, as blockIdx.y) cover dW[27, ci, co] once
     seen = np.zeros((27, ci, co), dtype=np.int64)
     for split in range(p.splits):
@@ -66,7 +103,9 @@ def test_wgrad_plan_covers_dw_once_and_fits(ci, co, x_dtype, cd):
     sg = torch.empty((), dtype=cd).element_size()
     ring = (4 * 18 * (18 * p.ci_tile * sx + 16)
             + 2 * TK.WGRAD_THREADS * p.co_tile * sg)
-    assert p.smem == max(ring, p.ksplit * 27 * p.ci_tile * p.co_tile * 4)
+    if not p.mma:
+        assert p.smem == max(ring,
+                             p.ksplit * 27 * p.ci_tile * p.co_tile * 4)
     assert p.smem + 4096 * 2 <= 227 * 1024
     assert p.g * p.splits <= 512 and p.g >= 8
 
@@ -81,8 +120,13 @@ def test_wgrad_plan_keeps_narrow_instances_whole():
     f32 = TK.wgrad_plan(64, 64, F32, F32)
     assert (f32.ci_tile, f32.co_tile, f32.splits, f32.g) == (8, 64, 8, 64)
     # f32 64 -> 16: a 64-channel ring (4 x 82,944 B) does not fit
+    assert TK.wgrad_plan(64, 16, F32, F32).ci_tile == 32
+    assert TK.wgrad_plan(64, 8, BF16, F32).ci_tile == 64
+    # bf16 dy (mma.sync): 64 -> 16 splits ci for the accumulators (two
+    # tiles of 32: 14 units of a warp x 2 n8 tiles x 4 > 64), 64 -> 8 for
+    # two CTAs on an SM (a 64-channel bf16 ring is 165,888 B)
     assert TK.wgrad_plan(64, 16, F32, BF16).ci_tile == 32
-    assert TK.wgrad_plan(64, 8, BF16, BF16).ci_tile == 64
+    assert TK.wgrad_plan(64, 8, BF16, BF16).ci_tile == 32
 
 
 def _meta_grid(nb=64, ci=16, feats_dtype=torch.float32):
@@ -148,15 +192,14 @@ def test_wgrad_plan_at_bs8_covers_dw_once_and_fits(ci, co, x_dtype, cd):
     p = TK.wgrad_plan(ci, co, x_dtype, cd, bs=8)
     assert ci % p.ci_tile == 0 and co % p.co_tile == 0
     assert p.splits == (ci // p.ci_tile) * (co // p.co_tile)
-    ent = _thread_entries(p, p.ci_tile, p.co_tile)
-    assert np.array_equal(np.sort(ent.ravel()),
-                          np.arange(27 * p.ci_tile * p.co_tile))
-    assert p.tiles * p.ksplit <= TK.WGRAD_THREADS
-    assert p.tm * p.tn <= TK.WGRAD_ACC_MAX
+    _check_tiles(p, 8)
+    assert p.mma == (cd == BF16 and ci >= TK.WGRAD_MMA_MIN_CI)
     sx = torch.empty((), dtype=x_dtype).element_size()
     sg = torch.empty((), dtype=cd).element_size()
     ring = 4 * 10 * (10 * p.ci_tile * sx + 16) + 2 * 64 * p.co_tile * sg
-    assert p.smem == max(ring, p.ksplit * 27 * p.ci_tile * p.co_tile * 4)
+    if not p.mma:
+        assert p.smem == max(ring,
+                             p.ksplit * 27 * p.ci_tile * p.co_tile * 4)
     # the row scan: 256 threads x 2 mask bytes = the 512 slots of a block
     assert TK.WGRAD_THREADS * 2 == 8 ** 3
     assert p.smem + 512 * 2 <= 227 * 1024

@@ -5,26 +5,25 @@ sources on the card, at both block sides.
 
 OLD_CSRC is the csrc/ directory of an earlier checkout whose conv3_tc.cu
 and conv3_wgrad.cu have the per-side entry points pcgc_conv3_tc_bs16 /
-_bs8 and pcgc_conv3_wgrad_bs16 / _bs8, and whose f32 conv3_tc.cu
-instances take this tree's f32 pack and plan (the first commit with f32
-weights staged by TMA, or a later one), unpacked with `git archive
-<commit> pcgcv2_torch/csrc | tar -x -C DIR`.  The earlier
-library is built here with nvcc from this tree's translation units
+_bs8 and pcgc_conv3_wgrad_bs16 / _bs8, and whose conv3_tc.cu instances
+take this tree's packs and plans in both dtypes (the first commit with
+bf16 weights staged by TMA, or a later one), unpacked with `git archive
+<commit> pcgcv2_torch/csrc | tar -x -C DIR`.  The earlier library is
+built here with nvcc from this tree's translation units
 (`ops/conv3.py::units`, the same instances) over OLD_CSRC's sources; every
 (ci, co) of the full-width model, and at 16^3 three more, runs in both
 compute dtypes on random grids of 512 and 1536 blocks (8^3: 4096 and
 12288, the same volume), forward and weight gradient:
 
-* every f32 forward and every weight gradient must have the bits of the
-  earlier library's launch on the same inputs;
-* every bf16 forward, whose weights the earlier library read from L2 in
-  mma fragment order (`old_bf16_pack`, its own copy of that pack, and
-  `old_bf16_plan`) and summed in another order, must be within 2^-7 of
-  max |old| of the earlier launch (one bf16 ulp at its largest value)
-  and within chip_smoke.TOL_BF16_REL of max |ref| of conv3_plain in f32
-  on the same inputs; the share of its elements whose bits differ is
-  printed;
-* a second bf16 launch on the same inputs gives the same bits.
+* every forward, f32 and bf16, and every f32 weight gradient must have
+  the bits of the earlier library's launch on the same inputs;
+* every bf16 weight gradient (bf16 dy, f32 x: the training step's), which
+  this tree sums on mma.sync and a library from before it on the CUDA
+  cores (the earlier library launched with its own plan,
+  tests/torch_conv3_wgrad_diagnosis.py::old_wgrad_plan), in other orders,
+  must be within DW_BF16_TOL of max |old| of the earlier launch and of
+  max |ref| of conv3_wgrad_plain in bf16, and a second launch must give
+  the same bits.
 
 The 8^3 side runs in a child process (PCGC_BLOCK_SIZE=8, read at import).
 Prints one JSON line and exits non-zero on a difference.  Not collected by
@@ -43,8 +42,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
+
+from torch_conv3_wgrad_diagnosis import old_wgrad_plan  # noqa: E402
 
 EXTRA_PAIRS = {16: ((64, 32), (1, 64), (4, 16)), 8: ()}
+# a bf16 dW (f32 sums of exact bf16 products, on mma.sync here and on the
+# CUDA cores in a library from before it, in other orders) against the
+# earlier launch and against conv3_wgrad_plain, over max |old| or max
+# |ref|: chip_smoke.TRAIN_TOL's dW tolerance, far inside 2^-7
+DW_BF16_TOL = 1e-4
 
 
 def old_library(csrc: Path, out: Path) -> Path:
@@ -82,31 +89,6 @@ def load(so: Path) -> ctypes.CDLL:
     return lib
 
 
-def old_bf16_pack(weight):
-    """The earlier bf16 pack, in mma fragment order: [27, ci/KS, co/8, 8,
-    4, KS/8, 2] (tap, k chunk, n tile, g, q, r, e), lane 4g+q of n tile nt
-    reading W[tap, KS*kc + 8r + 2q + e, 8nt + g] as KS/8 bf16 pairs (KS
-    16, or 8 for ci <= 8)."""
-    import torch
-
-    ci, co = weight.shape[3], weight.shape[4]
-    cip, cop = max(ci, 8), max(co, 8)
-    ks = 16 if cip >= 16 else 8
-    w = torch.nn.functional.pad(weight, (0, cop - co, 0, cip - ci))
-    w = w.reshape(27, cip // ks, ks // 8, 4, 2, cop // 8, 8)
-    return w.permute(0, 1, 5, 6, 3, 2, 4).contiguous()
-
-
-def old_bf16_plan(ci: int, bs: int) -> tuple:
-    """(XP, ROWS, SMEM, 1, 0) of the earlier bf16 instance: a ring of 4
-    planes, one output plane at a time."""
-    cip = max(ci, 8)
-    rs = cip + (8 if (cip * 2 // 16) % 2 == 0 else 0)
-    ys = 2 if 4 * (bs + 2) ** 2 * rs * 2 > 232448 - 256 else 1
-    rows = bs // ys
-    return 4 if bs == 16 else 8, rows, 4 * (rows + 2) * (bs + 2) * rs * 2, 1, 0
-
-
 def side(old: ctypes.CDLL) -> dict:
     """Every pair of this process's block side, both dtypes, forward and
     dW, against the earlier library."""
@@ -121,11 +103,10 @@ def side(old: ctypes.CDLL) -> dict:
     tc_old = getattr(old, f"pcgc_conv3_tc_bs{B.BS}")
     wgrad_old = getattr(old, f"pcgc_conv3_wgrad_bs{B.BS}")
     gen = torch.Generator(device=dev).manual_seed(0)
-    res = {"bs": B.BS, "f32_fwd": 0, "f32_fwd_same": 0, "dw": 0,
-           "dw_same": 0, "bf16_fwd": 0, "bf16_fwd_within": 0,
-           "bf16_fwd_repeat_same": 0, "bf16_worst_old_rel": 0.0,
-           "bf16_worst_ref_rel": 0.0, "bf16_bits_differ": 0,
-           "bf16_elements": 0, "differ": []}
+    res = {"bs": B.BS, "fwd": 0, "fwd_same": 0, "dw": 0, "dw_same": 0,
+           "bf16_dw": 0, "bf16_dw_within": 0, "bf16_dw_repeat_same": 0,
+           "bf16_dw_worst_old_rel": 0.0, "bf16_dw_worst_ref_rel": 0.0,
+           "differ": []}
     scale = (16 // B.BS) ** 3  # the same volume at either side
     pairs = tuple(p for p in K.MODEL_PAIRS + EXTRA_PAIRS[B.BS]
                   if K.route(*p, torch.float32) == "tc")
@@ -143,64 +124,31 @@ def side(old: ctypes.CDLL) -> dict:
                 b = torch.randn(co, device=dev, generator=gen).to(cd)
                 packed = K.pack_weight(w)
                 new = K.conv3(bg, nbrs, w, b, cd, packed=packed).feats
-                old_packed = old_bf16_pack(w) if bf16 else packed
-                if bf16:
-                    plan = old_bf16_plan(ci, B.BS)
-                else:
-                    p = K.tc_plan(ci, co, cd)
-                    plan = (p.xp, p.rows, p.smem, p.ps, p.wslots)
+                p = K.tc_plan(ci, co, cd)
                 ref = torch.empty_like(new)
-                sel = (ctypes.c_int * 5)(*plan)
+                sel = (ctypes.c_int * 5)(p.xp, p.rows, p.smem, p.ps,
+                                         p.wslots)
                 rc = tc_old(bg.feats.data_ptr(), nbrs.data_ptr(),
                             bg.mask.data_ptr(), bg.count.data_ptr(),
-                            old_packed.data_ptr(), b.data_ptr(),
+                            packed.data_ptr(), b.data_ptr(),
                             ref.data_ptr(), ctypes.addressof(sel),
                             nb_cap, ci, co, bf16, stream)
                 torch.cuda.synchronize()
-                if not bf16:
-                    res["f32_fwd"] += 1
-                    if rc == 0 and torch.equal(new, ref):
-                        res["f32_fwd_same"] += 1
-                    else:
-                        res["differ"].append(("conv3 f32", nb_cap, ci, co,
-                                              rc))
+                res["fwd"] += 1
+                if rc == 0 and torch.equal(new, ref):
+                    res["fwd_same"] += 1
                 else:
-                    again = K.conv3(bg, nbrs, w, b, cd, packed=packed).feats
-                    plain = K.conv3_plain(
-                        bg.replace(feats=bg.feats.float()), nbrs, w.float(),
-                        b.float(), torch.float32).feats
-                    old_rel = float((new.float() - ref.float()).abs().max()
-                                    / ref.float().abs().max().clamp_min(
-                                        1e-30))
-                    ref_rel = float((new.float() - plain).abs().max()
-                                    / plain.abs().max().clamp_min(1e-30))
-                    res["bf16_fwd"] += 1
-                    res["bf16_worst_old_rel"] = max(
-                        res["bf16_worst_old_rel"], old_rel)
-                    res["bf16_worst_ref_rel"] = max(
-                        res["bf16_worst_ref_rel"], ref_rel)
-                    res["bf16_bits_differ"] += int(
-                        (new.view(torch.int16) != ref.view(torch.int16))
-                        .sum())
-                    res["bf16_elements"] += new.numel()
-                    if (rc == 0 and old_rel <= 2.0 ** -7
-                            and ref_rel <= CS.TOL_BF16_REL):
-                        res["bf16_fwd_within"] += 1
-                    else:
-                        res["differ"].append(("conv3 bf16", nb_cap, ci, co,
-                                              rc, old_rel, ref_rel))
-                    if torch.equal(new, again):
-                        res["bf16_fwd_repeat_same"] += 1
-                    else:
-                        res["differ"].append(("conv3 bf16 repeat", nb_cap,
-                                              ci, co))
+                    res["differ"].append(("conv3", str(cd), nb_cap, ci, co,
+                                          rc))
                 dy = torch.randn(nb_cap, B.VOL, co, device=dev,
                                  generator=gen)
                 dy = torch.where((bg.mask & bg.valid[:, None])[:, :, None],
                                  dy, 0).to(cd)
                 g32 = bg.replace(feats=x32)
                 dw = K.conv3_wgrad(g32, dy, nbrs, cd)
-                p = K.wgrad_plan(ci, co, torch.float32, cd)
+                # the earlier library's plan: its own (CUDA cores) for bf16
+                # dy, this tree's (the same code) for f32
+                p = old_wgrad_plan(ci, co, 4, 2 if bf16 else 4, B.BS)
                 part = torch.empty(p.g, 27, ci, co, device=dev)
                 ref = torch.empty_like(dw)
                 sel = (ctypes.c_int * 3)(p.ci_tile, p.co_tile, p.g)
@@ -210,14 +158,35 @@ def side(old: ctypes.CDLL) -> dict:
                                ref.data_ptr(), ctypes.addressof(sel), ci,
                                co, 0, bf16, stream)
                 torch.cuda.synchronize()
-                res["dw"] += 1
-                if rc == 0 and torch.equal(dw, ref):
-                    res["dw_same"] += 1
+                if not bf16:
+                    res["dw"] += 1
+                    if rc == 0 and torch.equal(dw, ref):
+                        res["dw_same"] += 1
+                    else:
+                        res["differ"].append(("conv3_wgrad", nb_cap, ci, co,
+                                              str(cd), rc))
+                    continue
+                again = K.conv3_wgrad(g32, dy, nbrs, cd)
+                plain = K.conv3_wgrad_plain(g32, dy, nbrs, cd)
+                old_rel = float((dw - ref).abs().max()
+                                / ref.abs().max().clamp_min(1e-30))
+                ref_rel = float((dw - plain).abs().max()
+                                / plain.abs().max().clamp_min(1e-30))
+                res["bf16_dw"] += 1
+                res["bf16_dw_worst_old_rel"] = max(
+                    res["bf16_dw_worst_old_rel"], old_rel)
+                res["bf16_dw_worst_ref_rel"] = max(
+                    res["bf16_dw_worst_ref_rel"], ref_rel)
+                if rc == 0 and max(old_rel, ref_rel) <= DW_BF16_TOL:
+                    res["bf16_dw_within"] += 1
                 else:
-                    res["differ"].append(("conv3_wgrad", nb_cap, ci, co,
-                                          str(cd), rc))
-    res["bf16_bits_differ_share"] = (res["bf16_bits_differ"]
-                                     / max(res["bf16_elements"], 1))
+                    res["differ"].append(("conv3_wgrad bf16", nb_cap, ci,
+                                          co, rc, old_rel, ref_rel))
+                if torch.equal(dw, again):
+                    res["bf16_dw_repeat_same"] += 1
+                else:
+                    res["differ"].append(("conv3_wgrad bf16 repeat", nb_cap,
+                                          ci, co))
     return res
 
 
