@@ -12,7 +12,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      conv3_tc.cu instance, f32 and bf16, holds the products its plan
      names (HGMMA for wgmma, HMMA for mma.sync) and bulk copies (UBLKCP);
      every conv3_wgrad.cu instance runs the kernel its plan names, HMMA
-     in each bf16-dy instance on mma.sync, none in the f32-dy ones.
+     in each instance on mma.sync (the tf32 form, and only it, for f32
+     dy), none in those on the CUDA cores.
   2. conv3: the routed CUDA kernel (conv3_tc.cu on the tensor cores, at
      every shape of the main path) and the CUDA-core kernel conv3.cu, each
      against conv3_plain at every (nb_cap, ci, co) of the vox10 main path,
@@ -148,6 +149,9 @@ OUT_DIR = ROOT / "chiprun_out"
 # bf16 tensor-core FLOP/s.
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# TF32 tensor-core FLOP/s: an f32-accurate product in 3xTF32 is three of
+# them (two where one operand is bf16, exact in tf32)
+TF32_FLOPS = 495e12
 
 # conv3 shapes of one vox10 encode + decode: nb_cap -> (ci, co) pairs, and
 # how many times each shape runs per frame (31 encode + 33 decode = 64).
@@ -218,9 +222,19 @@ BF16_ROUTE = ("bf16, weights staged in shared memory by TMA bulk copies "
               "ci >= 16, mma.sync m16n8k16 (m16n8k8 at ci <= 8) below")
 # the design of conv3_wgrad.cu's f32 and bf16 instances (dy's dtype), as
 # the kernels line names it
-WGRAD_F32_ROUTE = ("f32 on the CUDA cores: f32 FMAs, one pass per live row "
-                   "for all 27 taps over cp.async-staged input planes, "
-                   "persistent CTAs, fixed-order sums")
+WGRAD_F32_ROUTE = ("3xTF32 at ci >= 8 and co >= 16 on the tensor cores: "
+                   "mma.sync m16n8k8 with the live voxels as K, a_lo.b_hi + "
+                   "a_hi.b_lo + a_hi.b_hi (a bf16 x has no lo) of each "
+                   "chunk of 8 into a fresh fragment added to the f32 "
+                   "sums, both operands split into tf32 hi and lo in the "
+                   "registers; x staged by cp.async in its own dtype as "
+                   "32-byte rows in sub-planes, each lane's 64-bit load the "
+                   "staged voxel v + tap of its own list entry, rows 2g and "
+                   "2g + 1 of an m16 tile of the (tap, ci) rows (two taps "
+                   "a tile at ci 8); a ring of planes at 16^3, an item's "
+                   "whole halo at 8^3; persistent CTAs, fixed-order sums; "
+                   "ci < 8 (1->16, 4->4, 4->8) and co < 16 (8->8, 16->4, "
+                   "32->8, ->1) on the CUDA cores, f32 FMAs")
 WGRAD_BF16_ROUTE = ("bf16 at ci >= 8 on the tensor cores: mma.sync "
                     "m16n8k16 with the live voxels as K, X^T and dY by "
                     "ldmatrix.trans from bf16 planes (f32 x rounded on the "
@@ -255,8 +269,8 @@ def tc_sass(lib) -> dict:
     UBLKCP (bulk copy) instructions `cuobjdump -sass` finds in each (both
     __launch_bounds__ variants summed); conv3_wgrad.cu's instances by
     "x dtype/dy dtype/ci/co/bs" with the kernel that holds them (mma for
-    wgrad_mma_kernel, cuda_cores for wgrad_partial_kernel) and their HMMA;
-    and the seconds it took."""
+    wgrad_mma_kernel, cuda_cores for wgrad_partial_kernel), their HMMA
+    and, of those, the tf32 ones (TF32); and the seconds it took."""
     import re
 
     t0 = time.perf_counter()
@@ -290,10 +304,12 @@ def tc_sass(lib) -> dict:
                 wk = "/".join((dt[tx], dt[tg] if tg else "bf16", ci, co, bs))
                 cur = wgrad[wk] = {
                     "kernel": "mma" if kind == "mma" else "cuda_cores",
-                    "HGMMA": 0, "HMMA": 0, "UBLKCP": 0}
+                    "HGMMA": 0, "HMMA": 0, "UBLKCP": 0, "TF32": 0}
         elif cur is not None:
             for op in ("HGMMA", "HMMA", "UBLKCP"):
                 cur[op] += f" {op}." in line or f" {op} " in line
+            if "TF32" in cur:  # the tf32 form, HMMA.1688.F32.TF32
+                cur["TF32"] += " HMMA." in line and ".TF32" in line
     if p.returncode != 0:
         raise RuntimeError(f"cuobjdump -sass failed on {lib}")
     return {"instances": out, "wgrad": wgrad,
@@ -305,8 +321,9 @@ def check_tc_sass(lib) -> None:
     of conv3_tc.cu, f32 and bf16, holds HGMMA and no HMMA where its plan
     says wgmma, HMMA where mma.sync, and UBLKCP; every instance of
     conv3_wgrad.cu runs the kernel its `wgrad_plan` names, with HMMA
-    where that is mma.sync (bf16 dy) and none on the CUDA cores (every f32
-    dy); logs the counts per dtype, raises on a difference."""
+    where that is mma.sync, all of them tf32 for f32 dy (3xTF32) and none
+    for bf16 dy, and no HMMA where it is the CUDA cores; logs the counts per
+    dtype, raises on a difference."""
     import torch
 
     from pcgcv2_torch.ops import conv3 as K
@@ -339,7 +356,9 @@ def check_tc_sass(lib) -> None:
         xd, gd, ci, co, bs = key.split("/")
         mma = K.wgrad_plan(int(ci), int(co), dts[xd], dts[gd],
                            bs=int(bs)).mma
-        if (v["kernel"] == "mma") != mma or (v["HMMA"] > 0) != mma:
+        tf32 = v["HMMA"] if mma and gd == "f32" else 0
+        if (v["kernel"] == "mma") != mma or (v["HMMA"] > 0) != mma \
+                or v["TF32"] != tf32:
             wbad.append((key, mma, v))
     for gd in ("f32", "bf16"):
         mine = {k: v for k, v in sass["wgrad"].items()
@@ -347,11 +366,12 @@ def check_tc_sass(lib) -> None:
         log(f"phase 1, cuobjdump -sass: {len(mine)} conv3_wgrad.cu "
             f"instances with {gd} dy, on mma.sync (wgrad_mma_kernel) "
             f"{sum(v['kernel'] == 'mma' for v in mine.values())}, HMMA in "
-            f"{sum(v['HMMA'] > 0 for v in mine.values())}, as planned in "
+            f"{sum(v['HMMA'] > 0 for v in mine.values())}, tf32 HMMA in "
+            f"{sum(v['TF32'] > 0 for v in mine.values())}, as planned in "
             f"{len(mine) - sum(b[0] in mine for b in wbad)}; HMMA per "
-            "bf16-dy instance x/ci/co/bs: " + ", ".join(
+            "instance x/ci/co/bs: " + ", ".join(
                 f"{k.split('/')[0]}/{'/'.join(k.split('/')[2:])} {v['HMMA']}"
-                for k, v in sorted(mine.items()) if gd == "bf16"))
+                for k, v in sorted(mine.items())))
     n_tc = 2 * sum(len(K.TC_PAIRS[bs]) for bs in K.BLOCK_SIDES)
     n_wg = 4 * sum(len(K.WGRAD_PAIRS[bs]) for bs in K.BLOCK_SIDES)
     if bad or len(ops) != n_tc or wbad or len(sass["wgrad"]) != n_wg:
@@ -1088,13 +1108,17 @@ def train_batch():
 
 
 def wgrad_bound(bg, nbrs, ci: int, co: int, dtype: str):
-    """(bytes ms, operations ms) of conv3_wgrad's bound.  Bytes: the mask
-    of the live rows (where the occupied slots are found), dy at the
-    occupied slots only, x at the slots within the 3^3 neighbourhood of an
-    occupied one, the neighbour rows, and the f32 [27, ci, co] result: no
-    dense output, unlike the forward and dX.  Operations: 2*ci*co per pair
-    of an occupied output voxel and an occupied input voxel of its 3^3
-    neighbourhood, as `conv3_bound` counts them."""
+    """(bytes ms, operations ms, operations ms on the CUDA cores) of
+    conv3_wgrad's bound.  Bytes: the mask of the live rows (where the
+    occupied slots are found), dy at the occupied slots only, x at the
+    slots within the 3^3 neighbourhood of an occupied one, the neighbour
+    rows, and the f32 [27, ci, co] result: no dense
+    output, unlike the forward and dX.  Operations: 2*ci*co per pair of an
+    occupied output voxel and an occupied input voxel of its 3^3
+    neighbourhood, as `conv3_bound` counts them, at the dtype's peak; f32
+    dy's least time is on the tensor cores, each f32-accurate product as
+    3xTF32 (2x for a bf16 x), and its time at the CUDA cores' f32 peak is
+    the third number."""
     import torch
     import torch.nn.functional as F
 
@@ -1113,7 +1137,12 @@ def wgrad_bound(bg, nbrs, ci: int, co: int, dtype: str):
     nbytes = (rows * B.VOL + occupied * co * elt + reached * ci * elt
               + rows * 27 * 4 + 27 * ci * co * 4)
     ops = 2.0 * ci * co * pairs
-    return nbytes / HBM_BPS * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
+    ops_ms = ops / PEAK_FLOPS[dtype] * 1e3
+    if dtype == "float32":
+        split = 3 if bg.feats.dtype == torch.float32 else 2
+        return (nbytes / HBM_BPS * 1e3, ops * split / TF32_FLOPS * 1e3,
+                ops_ms)
+    return nbytes / HBM_BPS * 1e3, ops_ms, ops_ms
 
 
 def lib_grads(bg, nbrs, w, dy, cd):
@@ -1193,7 +1222,8 @@ def check_backward(bg, dy, nbrs, cd, dw, dx, real_dgrad, real_wgrad,
     r["dw_plain_ms"] = cuda_ms(
         lambda: K.conv3_wgrad_plain(bg, dy, nbrs, cd), 3)
     r["dw_library_ms"] = cuda_ms(lib_dw, KERNEL_REPS)
-    r["dw_bytes_ms"], r["dw_ops_ms"] = wgrad_bound(bg, nbrs, ci, co, dtype)
+    r["dw_bytes_ms"], r["dw_ops_ms"], r["dw_ops_cuda_cores_ms"] = \
+        wgrad_bound(bg, nbrs, ci, co, dtype)
     if dx is not None:
         gbg = bg.replace(feats=dy)
         wf = K.flip_weight(weight)
@@ -1531,13 +1561,23 @@ def log_backward(rows, dtype: str) -> None:
     t = {k: per_step_sum(rows, k) for k in (
         "dx_ms", "dx_plain_ms", "dx_library_ms", "dx_bound_ms", "dw_ms",
         "dw_plain_ms", "dw_library_ms", "dw_bound_ms")}
+    tf32 = ("" if dtype != "float32" else
+            f" at 3xTF32 on the tensor cores, "
+            f"{dw_cuda_core_bound(rows):.4f} at the CUDA cores' f32 peak")
     log(f"conv3 backward per training step, {dtype}: dX {t['dx_ms']:.3f} ms "
         f"(plain {t['dx_plain_ms']:.3f}, cuDNN {t['dx_library_ms']:.3f}, "
         f"bound {t['dx_bound_ms']:.4f}); dW {t['dw_ms']:.3f} ms (plain "
         f"{t['dw_plain_ms']:.3f}, cuDNN {t['dw_library_ms']:.3f}, bound "
-        f"{t['dw_bound_ms']:.4f}; worst error against conv3_wgrad_plain in "
-        f"{dtype} {max(r['dw_plain_rel_err'] for r in rows):.3g} of max "
-        f"|ref|)")
+        f"{t['dw_bound_ms']:.4f}{tf32}; worst error against "
+        f"conv3_wgrad_plain in {dtype} "
+        f"{max(r['dw_plain_rel_err'] for r in rows):.3g} of max |ref|)")
+
+
+def dw_cuda_core_bound(rows) -> float:
+    """f32 dW's bound per step with the operations at the CUDA cores' f32
+    peak: each call's larger of bytes and those operations, summed."""
+    return sum(max(r["dw_bytes_ms"], r["dw_ops_cuda_cores_ms"])
+               for r in rows)
 
 
 def per_step_sum(rows, key: str) -> float:
@@ -2089,6 +2129,8 @@ def train_kernel_entries(train) -> list:
                 "ms", "plain_ms", "bound_ms")},
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": per_step_sum(rows, f"{prefix}_library_ms"),
+            **({"bound_cuda_cores_ms": dw_cuda_core_bound(rows)}
+               if prefix == "dw" and dtype == "float32" else {}),
         }
 
     out = []
@@ -2947,7 +2989,8 @@ def bs8_kernel_entries(bs8: dict) -> dict:
                      "train_step_launches": bs8["9d"]["steps"]["float32"][
                          "launches"]["fwd"]}}
     for e in train_kernel_entries(bs8["9d"]):
-        out[e["name"]] = {**{k: e[k] for k in keys}, "dtype": "float32",
+        out[e["name"]] = {**{k: e[k] for k in keys + ("bound_cuda_cores_ms",)
+                             if k in e}, "dtype": "float32",
                           "bfloat16": {k: e["bfloat16"][k] for k in keys},
                           "per": "training step"}
     return out

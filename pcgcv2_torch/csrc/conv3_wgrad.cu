@@ -1,7 +1,7 @@
 // Weight gradient of the 3^3 stride-1 sparse convolution over dense BS^3
 // voxel blocks (BS = 16 or 8, a template parameter; sm_90a, f32
-// accumulation): bf16 dy on the tensor cores (mma.sync), f32 dy on the
-// CUDA cores.
+// accumulation) on the tensor cores: bf16 dy on mma.sync m16n8k16, f32 dy
+// in 3xTF32 on mma.sync m16n8k8; ci below 8 on the CUDA cores.
 //
 // conv3's backward has no Pallas original: the TPU kernel
 // pcgcv2_tpu/ops/pallas_conv.py::conv3_pallas (:119) is forward only, and
@@ -62,9 +62,27 @@
 // channels x 2 B = 32 KB) and its K chunks run across its planes, one
 // barrier per item.  The accumulators stay in registers across items and
 // each is stored once, by its lane.
-// f32 dy, and bf16 dy at ci below 8 (`wgrad_partial_kernel`, unchanged;
-// under bf16 an f32 x is rounded by a pass over each staged plane): every
-// thread owns a TM x TN
+// f32 dy (the same kernel, `tf32_chunks`): 3xTF32, a_lo.b_hi + a_hi.b_lo
+// + a_hi.b_hi on mma.sync m16n8k8 with the listed voxels as K in chunks of
+// 8, each operand split into tf32 hi and lo in the registers (`tf32_rna`;
+// dY once per chunk for all of a warp's units; a bf16 x is exact in tf32
+// and has no lo, so two products), each chunk's products added to the f32
+// sums (the tensor cores' own accumulation truncates).  ldmatrix .trans
+// moves b16 only and the tf32 A fragment holds K at lane % 4, so X is read
+// by plain shared loads: x is staged by cp.async in its own dtype as
+// 32-byte rows in sub-planes, dy as f32 rows, so that 4 consecutive voxels
+// or dy rows fall in distinct banks and a voxel's address is its staged
+// row plus a constant per unit.  An m16 tile is 16 rows of the (tap, ci)
+// space (a ci tile of 8 packs two taps into one); lane 4g + q holds
+// fragment rows g and g + 8 as rows 2g and 2g + 1 (the store undoes it),
+// adjacent channels of one voxel v + tap that one 64-bit load gives (32
+// bits for bf16 pairs).  Lanes past the list read its last entry against
+// zero dy rows.  The staging and the steps are the bf16 instances': a ring
+// of planes at 16^3 (cp.async keeps the next plane in flight during a
+// plane's products), the whole halo at 8^3.
+// ci below 8, either dy, and f32 dy at co below 16
+// (`wgrad_partial_kernel`; under bf16 an f32 x rounded by a pass over each
+// staged plane): every thread owns a TM x TN
 // tile of one tap's [ci, co] block and walks every KSPLIT-th listed voxel
 // over f32 planes staged by cp.async (y rows padded by 16 bytes), f32 FMAs;
 // the KSPLIT partial tiles are summed in a fixed order at the end.
@@ -72,9 +90,9 @@
 // PCGC_BS and the (ci, co) pairs to instantiate (PCGC_PAIRS) defined, into
 // one library; the entry point of each side is pcgc_conv3_wgrad_bs<BS>.
 // Measured on the H100: PERF.md (the conv3_wgrad rows, and how the bf16
-// redesign moved them).  Not yet: the f32 instances on the tensor cores
-// (3xTF32 on mma.sync), overlap of one item's staging with the previous
-// item's products.
+// and f32 redesigns moved them).  Not yet: overlap of one item's staging
+// with the previous item's products; staging only the voxels an occupied
+// output reads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,6 +123,12 @@ constexpr int DYBUF = 1 + AHEAD;        // ring of staged dy planes
 // on the CUDA cores, which were faster there at both block sides (an m16
 // tile of ci 4 is three quarters padding; measured, PERF.md)
 constexpr int MMA_MIN_CI = 8;
+// f32 dy runs 3xTF32 on mma.sync m16n8k8 at ci >= MMA_MIN_CI and co >=
+// MMA_MIN_CO_F32; the narrower co (16 -> 4, 32 -> 8 and the -> 1 heads,
+// 8 -> 8) on the CUDA cores, which were faster there at both block sides:
+// an n8 tile of co 4 is half padding and the split into hi and lo costs
+// the same at any co (measured, PERF.md)
+constexpr int MMA_MIN_CO_F32 = 16;
 
 // The plan of one (ci, co, x and dy element sizes, block side) instance;
 // ops/conv3.py::wgrad_plan computes the same and the launch checks that
@@ -166,13 +190,40 @@ constexpr int mma_smem(int bs, int cit, int cot) {
                  : NBUF * hs * hs * cip * 2 + DYBUF * bs * bs * cop * 2;
 }
 
-// The first that fits: the widest co tile, then the widest ci tile.
+// 3xTF32 (f32 dy): an m16 tile is 16 rows of the (tap, ci) space, row R
+// = tap * cit + c, so a ci tile of 8 packs two taps into one (27 taps: 14
+// tiles, the last half padding); a warp's units are m16 tiles, each with
+// every n8 tile of the co tile.  A staged voxel is 32-byte rows of x in its
+// own dtype (a ci tile of 8 in bf16 half of one), dy rows are f32.  Two CTAs
+// share an SM (one was slower, measured): each has half the SM's 233472
+// bytes, less the 1 KB a CTA reserves and the static arrays (the slot list
+// and 512 bytes).
+constexpr int tf32_units(int cit) { return (27 * cit + 15) / 16; }
+constexpr int tf32_acc(int cit, int cot) {
+  return (tf32_units(cit) + WARPS - 1) / WARPS * (cot / 8) * 4;
+}
+constexpr int tf32_row(int cit, int sx) { return imax(cit * sx, 32); }
+constexpr int tf32_smem(int bs, int cit, int cot, int sx) {
+  const int hs = bs + 2, xb = tf32_row(cit, sx), db = cot * 4;
+  return bs == 8 ? hs * hs * hs * xb + bs * bs * bs * db
+                 : NBUF * hs * hs * xb + DYBUF * bs * bs * db;
+}
+constexpr int smem_tf32(int bs) {
+  return 233472 / 2 - 1024 - (2 * bs * bs * bs + 512);
+}
+
+// The first that fits: the widest co tile, then the widest ci tile (on
+// mma.sync under f32 dy, tiles of ci and co from 8).
 constexpr Plan make_plan(int ci, int co, int sx, int sg, int bs) {
-  if (sg == 2 && ci >= MMA_MIN_CI) {
-    for (int cot = co; cot >= 1; cot /= 2)
-      for (int cit = ci; cit >= 1; cit /= 2) {
-        const int smem = mma_smem(bs, cit, cot);
-        if (mma_acc(cit, cot) <= ACC_MAX && smem <= SMEM_MMA) {
+  if (ci >= MMA_MIN_CI && (sg == 2 || co >= MMA_MIN_CO_F32)) {
+    const int least = sg == 2 ? 1 : 8;
+    for (int cot = co; cot >= least; cot /= 2)
+      for (int cit = ci; cit >= least; cit /= 2) {
+        const int smem = sg == 2 ? mma_smem(bs, cit, cot)
+                                 : tf32_smem(bs, cit, cot, sx);
+        if (sg == 2 ? mma_acc(cit, cot) <= ACC_MAX && smem <= SMEM_MMA
+                    : tf32_acc(cit, cot) <= ACC_MAX &&
+                          smem <= smem_tf32(bs)) {
           const int splits = (ci / cit) * (co / cot);
           return Plan{cit, cot, 0, 0, 0, 0, splits,
                       imax(8, GRID_CTAS / splits), smem, 1};
@@ -253,6 +304,47 @@ struct MCfg {
           : 0;
   static constexpr int MIN_CTAS =
       WHOLE || U * NT * 4 + PREFETCH <= 64 ? 2 : 1;
+};
+
+// The 3xTF32 instances (f32 dy).  Staged x is NSUB sub-planes of SLOTS x
+// PLANE 32-byte rows: staged row R = slot * PLANE + (y, z) holds a voxel's
+// channels c in sub-plane c * SX / 32.  Any 4 consecutive rows of a
+// sub-plane fill the 4 32-byte bank groups of a 128-byte line, and a
+// voxel's address is R * 32 plus a constant per channel.  dy: NT
+// sub-buffers of 32-byte rows (8 f32 channels), row j the j-th listed slot.
+template <typename TX, int CI, int CO, int BS_>
+struct TCfg {
+  static_assert(BS_ == 16 || BS_ == 8, "block side");
+  static constexpr int BS = BS_;
+  static constexpr int VOL = BS * BS * BS;
+  static constexpr int HS = BS + 2;
+  static constexpr int PLANE = HS * HS;
+  static constexpr Plan PL = make_plan(CI, CO, sizeof(TX), 4, BS);
+  static constexpr int CIT = PL.cit, COT = PL.cot;
+  static constexpr int COS = CO / COT;  // co tiles
+  static constexpr int SX = sizeof(TX);
+  // an f32 x has a lo part (3 products); a bf16 x is exact in tf32 (2)
+  static constexpr bool LO = std::is_same<TX, float>::value;
+  static constexpr int NSUB = tf32_row(CIT, SX) / 32;
+  static constexpr int NT = COT / 8;             // n8 tiles
+  static constexpr int UNITS = tf32_units(CIT);  // m16 tiles of (tap, ci)
+  static constexpr int U = (UNITS + WARPS - 1) / WARPS;  // units a warp
+  static constexpr bool WHOLE = BS == 8;
+  static constexpr int SLOTS = WHOLE ? HS : NBUF;
+  static constexpr int SLOT_B = PLANE * 32;      // a slot's rows
+  static constexpr int SUB_B = SLOTS * SLOT_B;   // a sub-plane
+  static constexpr int DYROWS = WHOLE ? VOL : BS * BS;
+  static constexpr int GBUF_B = DYROWS * COT * 4;
+  static constexpr int RING_B = NSUB * SUB_B;
+  // byte of channel c of a staged voxel, beside its row
+  __device__ static constexpr int chan_at(int c) {
+    return c * SX / 32 * SUB_B + c * SX % 32;
+  }
+  static_assert(PL.mma == 1 && PL.cit != 0, "no tf32 plan fits");
+  static_assert(CIT % 8 == 0 && COT % 8 == 0, "tiles of 8 channels");
+  static_assert(PL.smem == RING_B + (WHOLE ? 1 : DYBUF) * GBUF_B, "smem");
+  static_assert(U * NT * 4 <= ACC_MAX, "accumulators");
+  static constexpr int MIN_CTAS = 2;
 };
 
 // The work items of a grid of g CTAs over n_rows live rows: (row, chunk of
@@ -350,6 +442,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a.b + c on mma.sync m16n8k8 tf32 (f32 accumulation), and d = a.b;
+// no side effects, so not volatile: the compiler may interleave chains
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1,
+                                         const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// f32 -> tf32 bits, rounded to nearest, ties away (the mma would
+// truncate): conv3_tc.cu's integer rounding, cvt.rna.tf32.f32's bits for
+// every finite x
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// an f32 value -> its tf32 hi and lo parts, both rounded (leaving lo, or
+// both, to the mma's truncation was faster, and less accurate: measured)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(__uint_as_float(x));
+  lo = tf32_rna(__uint_as_float(x) - __uint_as_float(hi));
 }
 
 // gather halo plane p (halo x coordinate, 0..BS+1) of block row `rows`,
@@ -592,6 +711,165 @@ __device__ __forceinline__ void stage_dy_bf16(
   }
 }
 
+// The copies of a staged voxel (or dy row) of VB bytes, VB a multiple of
+// 16: 16-byte pieces in 32-byte rows of successive sub-planes; copy k is
+// piece k % PIECES of voxel k / PIECES, so neighbouring threads read one
+// voxel's bytes from device memory.  (A quarter warp's pieces then land two
+// to a bank group at 2 sub-planes; ordering the copies by sub-plane avoids
+// that but read device memory in 32-byte pieces and was slower, measured.)
+
+// Halo plane p of block row `rows`, channels c0 .. c0 + CIT - 1, copied by
+// cp.async as the grid stores it into the staged rows at `slot` (TCfg's
+// layout).  The upper half of a bf16 ci tile of 8's row is never read.
+template <typename C, int CI, typename TX>
+__device__ __forceinline__ void copy_plane(const TX* __restrict__ x,
+                                           const int* rows, int p, int c0,
+                                           unsigned char* slot, int t) {
+  constexpr int HS = C::HS, BS = C::BS, VOL = C::VOL;
+  constexpr int PIECES = C::CIT * C::SX / 16;
+  int nx, sx;
+  halo_src<BS>(p, nx, sx);
+  for (int k = t; k < C::PLANE * PIECES; k += THREADS) {
+    const int r = k / PIECES, b = k % PIECES * 16;
+    int ny, sy, nz, sz;
+    halo_src<BS>(r / HS, ny, sy);
+    halo_src<BS>(r % HS, nz, sz);
+    const size_t row = rows[nx * 9 + ny * 3 + nz];
+    const TX* src =
+        x + (row * VOL + (sx * BS + sy) * BS + sz) * CI + c0 + b / C::SX;
+    cp_async<16>(smem_u32(slot + r * 32 + C::chan_at(b / C::SX)), src);
+  }
+}
+
+// gather f32 dy at the listed slots idx[0 .. n) of the row at `row0`, co
+// tile co0 .., into buf (TCfg's layout), and zeros into rows n .. up to
+// the next multiple of 8: a K chunk past the list multiplies by 0
+template <typename C, int CO>
+__device__ __forceinline__ void stage_dy_f32(const float* __restrict__ dy,
+                                             const uint16_t* idx,
+                                             size_t row0, int n, int co0,
+                                             unsigned char* buf, int t) {
+  constexpr int PIECES = C::COT * 4 / 16;
+  constexpr int SUB = C::DYROWS * 32;  // bytes of a sub-buffer
+  for (int k = t; k < n * PIECES; k += THREADS) {
+    const int j = k / PIECES, b = k % PIECES * 16;
+    const float* src = dy + (row0 + idx[j]) * CO + co0 + b / 4;
+    cp_async<16>(smem_u32(buf + b / 32 * SUB + j * 32 + b % 32), src);
+  }
+  const int pad = (8 - n % 8) % 8;
+  for (int k = t; k < pad * C::COT; k += THREADS) {
+    const int j = n + k / C::COT, ch = k % C::COT;
+    *reinterpret_cast<float*>(buf + ch / 8 * SUB + j * 32 + ch % 8 * 4) =
+        0.f;
+  }
+}
+
+// acc[u][nt] += X[v + tap]^T dY[v] in 3xTF32 over the listed slots idx[kb
+// .. ke) of the staged planes: K chunks of 8 listed voxels, in list order
+// (dy rows 0 ..; a chunk's rows past ke are zero).  Warp w owns the units
+// u = w, w + WARPS, ... (m16 tiles of the (tap, ci) rows) and every n8
+// tile.  Lane 4g + q holds fragment rows g and g + 8, which are rows 2g and
+// 2g + 1 of the unit (the store undoes this permutation): adjacent
+// channels of one voxel v + tap, one 64-bit load (32 bits for a bf16
+// pair); fragment k q and q + 4 are list entries k0 + q and k0 + q +
+// 4 (past ke, the last entry: finite values times zero dy).  A row past
+// tap 26 (and a unit past UNITS) reads tap 0: it feeds no stored entry.
+// Each unit's offset from a lane's staged row is fixed for the call (at
+// 16^3 with its planes' ring slots).  The next chunk's list entries and dY
+// words are loaded before this chunk's products.  Both operands are split
+// into tf32 hi and lo in the registers, dY once per chunk for all of the
+// warp's units; a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the small terms first
+// (a bf16 x has no lo), go into a fresh fragment that is then added to the
+// accumulator in f32: the tensor cores' own accumulation truncates, which
+// over a call's thousands of products would bias the sums.
+template <typename C>
+__device__ __forceinline__ void tf32_chunks(float (&acc)[C::U][C::NT][4],
+                                            const uint16_t* idx, int kb,
+                                            int ke, int xo,
+                                            const unsigned char* ring,
+                                            const unsigned char* dyb,
+                                            int lane, int warp) {
+  constexpr int BS = C::BS, HS = C::HS;
+  const int g = lane >> 2, q = lane & 3;
+  // each unit's rows 2g, 2g + 1 of this lane (one voxel: CIT is even): its
+  // tap's planes, (y, z) and channel as a byte offset from the lane's
+  // staged row
+  int uo[C::U];
+#pragma unroll
+  for (int j = 0; j < C::U; ++j) {
+    const int row = (warp + j * WARPS) * 16 + 2 * g;
+    const int tap = row / C::CIT < 27 ? row / C::CIT : 0;
+    const int tx = tap / 9, tyz = (tap / 3) % 3 * HS + tap % 3;
+    uo[j] = ((C::WHOLE ? tx : (xo + tx) % C::SLOTS) * C::PLANE + tyz) * 32 +
+            C::chan_at(row % C::CIT);
+  }
+  constexpr int SUB = C::DYROWS * 32;
+  constexpr float ZERO[4] = {0.f, 0.f, 0.f, 0.f};
+  // a chunk's list entries and raw dY words of this lane (k q, q + 4)
+  int vn[2];
+  uint32_t bn[C::NT][2];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      vn[h] = idx[min(k0 + q + 4 * h, ke - 1)];
+      const unsigned char* b =
+          dyb + min(k0 - kb + q + 4 * h, C::DYROWS - 1) * 32 + 4 * g;
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt)
+        bn[nt][h] = *reinterpret_cast<const uint32_t*>(b + nt * SUB);
+    }
+  };
+  fetch(kb);
+#pragma unroll 2
+  for (int k0 = kb; k0 < ke; k0 += 8) {
+    uint32_t bh[C::NT][2], bl[C::NT][2];
+    const unsigned char* vrow[2];  // the lane's staged rows, k q and q + 4
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = vn[h];
+      vrow[h] = ring + ((C::WHOLE ? v / (BS * BS) * C::PLANE : 0) +
+                        (v / BS) % BS * HS + v % BS) *
+                           32;
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt)
+        split_tf32(bn[nt][h], bh[nt][h], bl[nt][h]);
+    }
+    if (k0 + 8 < ke) fetch(k0 + 8);  // warp-uniform
+    // every warp runs U units, one past UNITS on tap 0 and never stored:
+    // no branch between the units, so their loads and products interleave
+#pragma unroll
+    for (int j = 0; j < C::U; ++j) {
+      // rows g, g + 8 at k q (a0, a1) and at k q + 4 (a2, a3)
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // channels 2g, 2g + 1 of one voxel
+        const unsigned char* at = vrow[h] + uo[j];
+        if constexpr (!C::LO) {  // a bf16 pair
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(at);
+          ah[2 * h] = w << 16, ah[2 * h + 1] = w & 0xffff0000u;
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(at);
+          split_tf32(w.x, ah[2 * h], al[2 * h]);
+          split_tf32(w.y, ah[2 * h + 1], al[2 * h + 1]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+        float c[4];
+        if constexpr (C::LO) {
+          mma_tf32(c, al, bh[nt][0], bh[nt][1], ZERO);
+          mma_tf32(c, ah, bl[nt][0], bl[nt][1], c);
+        } else {
+          mma_tf32(c, ah, bl[nt][0], bl[nt][1], ZERO);
+        }
+        mma_tf32(c, ah, bh[nt][0], bh[nt][1], c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][nt][e] += c[e];
+      }
+    }
+  }
+}
+
 // acc[u][nt] += X[v + tap]^T dY[v] over the listed slots idx[kb .. ke) of
 // the staged planes: K chunks of 16 listed voxels, in list order.  Warp w
 // owns the units u = w, w + WARPS, ... (unit = tap * MT + m16 tile) and
@@ -660,20 +938,29 @@ __device__ __forceinline__ void mma_chunks(float (&acc)[C::U][C::NT][4],
   }
 }
 
-// The bf16 instances: as wgrad_partial_kernel walks items and lists their
-// slots, with the sums on mma.sync m16n8k16 (f32 accumulation) over bf16
-// staged planes.  Each warp's fragments stay in registers across the
-// items and are written to part[b, tap, ci, co] at the end, each entry by
-// one thread: no k split to sum.
-template <typename TX, int CI, int CO, int BS>
-__global__ void __launch_bounds__(THREADS, MCfg<TX, CI, CO, BS>::MIN_CTAS)
-    wgrad_mma_kernel(const TX* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ dy,
+// The tensor-core instances' configuration: MCfg for bf16 dy, TCfg for
+// f32 dy
+template <typename TX, typename TG, int CI, int CO, int BS>
+using MmaCfg = std::conditional_t<std::is_same<TG, float>::value,
+                                  TCfg<TX, CI, CO, BS>, MCfg<TX, CI, CO, BS>>;
+
+// The tensor-core instances: as wgrad_partial_kernel walks items and lists
+// their slots, with the sums on mma.sync (f32 accumulation) over staged
+// planes: bf16 dy m16n8k16 over bf16 planes (`mma_chunks`), f32 dy 3xTF32
+// m16n8k8 over planes in x's own dtype (`tf32_chunks`).  Each warp's
+// fragments stay in registers across the items and are written to
+// part[b, tap, ci, co] at the end, each entry by one thread: no k split to
+// sum.
+template <typename TX, typename TG, int CI, int CO, int BS>
+__global__ void __launch_bounds__(THREADS,
+                                  MmaCfg<TX, TG, CI, CO, BS>::MIN_CTAS)
+    wgrad_mma_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
                      const int* __restrict__ nbrs,
                      const uint8_t* __restrict__ mask,
                      const int* __restrict__ count,
                      float* __restrict__ part) {
-  using C = MCfg<TX, CI, CO, BS>;
+  using C = MmaCfg<TX, TG, CI, CO, BS>;
+  constexpr bool TF = std::is_same<TG, float>::value;  // 3xTF32
   constexpr int VOL = C::VOL;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
@@ -688,8 +975,7 @@ __global__ void __launch_bounds__(THREADS, MCfg<TX, CI, CO, BS>::MIN_CTAS)
   const int ci0 = blockIdx.y / C::COS * C::CIT;
   const int co0 = blockIdx.y % C::COS * C::COT;
   if (t < 4) zrow[t] = 0u;  // before the first scan's barriers
-  const uint32_t ring_s = smem_u32(ring), gbuf_s = smem_u32(gbuf),
-                 zero_s = smem_u32(zrow);
+  const uint32_t ring_s = smem_u32(ring), zero_s = smem_u32(zrow);
 
   float acc[C::U][C::NT][4];
 #pragma unroll
@@ -720,16 +1006,38 @@ __global__ void __launch_bounds__(THREADS, MCfg<TX, CI, CO, BS>::MIN_CTAS)
       return ((occ >> lo) & ((2u << (hi - lo)) - 1u)) != 0u;
     };
     using Stage = PlaneStage<TX, CI, C::CIT, BS>;
-    constexpr bool F32 = std::is_same<TX, float>::value;
+    // bf16 dy over an f32 x: each plane rounded on its way through the
+    // registers; else copied by cp.async
+    constexpr bool REG = !TF && std::is_same<TX, float>::value;
     [[maybe_unused]] Stage st;  // an f32 plane on its way through registers
     auto slot = [&](int q) { return ring + (q % C::SLOTS) * C::SLOT_B; };
+    auto copy = [&](int q) {  // plane q by cp.async
+      if constexpr (TF)
+        copy_plane<C, CI>(x, rows, q, ci0, slot(q), t);
+      else
+        Stage::copy(x, rows, q, ci0, slot(q), t);
+    };
     auto stage_plane = [&](int q) {  // plane q, landed or in flight
-      if constexpr (F32) {
+      if constexpr (REG) {
         st.load(x, rows, q, ci0, t);
         st.store(slot(q), t);
       } else {
-        Stage::copy(x, rows, q, ci0, slot(q), t);
+        copy(q);
       }
+    };
+    auto stage_dy = [&](int kb, int n, unsigned char* buf) {
+      if constexpr (TF)
+        stage_dy_f32<C, CO>(dy, idx + kb, row0, n, co0, buf, t);
+      else
+        stage_dy_bf16<CO, C::COT>(dy, idx + kb, row0, n, co0, buf, t);
+    };
+    // the products of output plane xo (at 8^3 of the item) over dy at dyb
+    auto chunks = [&](int kb, int ke, int xo, unsigned char* dyb) {
+      if constexpr (TF)
+        tf32_chunks<C>(acc, idx, kb, ke, xo, ring, dyb, lane, warp);
+      else
+        mma_chunks<C>(acc, idx, kb, ke, ring_s, smem_u32(dyb), zero_s, lane,
+                      warp);
     };
     const int qend = x0 + xp + 2;  // input planes x0 .. qend - 1
     if constexpr (C::WHOLE) {
@@ -737,19 +1045,17 @@ __global__ void __launch_bounds__(THREADS, MCfg<TX, CI, CO, BS>::MIN_CTAS)
       for (int q = x0; q < qend; ++q)
         if (needed(q)) stage_plane(q);
       const int kb = pstart[x0], ke = pstart[x0 + xp];
-      stage_dy_bf16<CO, C::COT>(dy, idx + kb, row0, ke - kb, co0, gbuf, t);
+      stage_dy(kb, ke - kb, gbuf);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      mma_chunks<C>(acc, idx, kb, ke, ring_s, gbuf_s, zero_s, lane, warp);
+      chunks(kb, ke, x0, gbuf);
       __syncthreads();  // the planes, dy and the list are rewritten
       continue;
     } else {
       auto dybuf = [&](int xo) { return gbuf + (xo % DYBUF) * C::GBUF_B; };
       auto dy_of = [&](int xo) {
-        stage_dy_bf16<CO, C::COT>(dy, idx + pstart[xo], row0,
-                                  pstart[xo + 1] - pstart[xo], co0,
-                                  dybuf(xo), t);
+        stage_dy(pstart[xo], pstart[xo + 1] - pstart[xo], dybuf(xo));
       };
 #pragma unroll 1
       for (int q = x0; q < x0 + 2 + AHEAD; ++q) {
@@ -757,31 +1063,30 @@ __global__ void __launch_bounds__(THREADS, MCfg<TX, CI, CO, BS>::MIN_CTAS)
         if (q >= x0 + 2 && q - 2 < x0 + xp) dy_of(q - 2);
         cp_async_commit();
       }
-      // an f32 x: the next plane's loads are issued before this plane's
-      // products and stored after them
+      // an f32 x under bf16: the next plane's loads are issued before this
+      // plane's products and stored after them
 #pragma unroll 1
       for (int xo = x0; xo < x0 + xp; ++xo) {
         // AHEAD planes ahead, into the slots output plane xo - 1 read
         const int qn = xo + 2 + AHEAD;
         const bool next = qn < qend && needed(qn);
         if (next) {
-          if constexpr (F32)
+          if constexpr (REG)
             st.load(x, rows, qn, ci0, t);
           else
-            Stage::copy(x, rows, qn, ci0, slot(qn), t);
+            copy(qn);
         }
         if (xo + AHEAD < x0 + xp) dy_of(xo + AHEAD);
         cp_async_commit();
         if (!((occ >> xo) & 1u)) {
-          if constexpr (F32)
+          if constexpr (REG)
             if (next) st.store(slot(qn), t);
           continue;
         }
         cp_async_wait<AHEAD>();  // planes xo .. xo + 2, dy of xo (own part)
         __syncthreads();         // ... everyone's
-        mma_chunks<C>(acc, idx, pstart[xo], pstart[xo + 1], ring_s,
-                      smem_u32(dybuf(xo)), zero_s, lane, warp);
-        if constexpr (F32)  // a slot no warp reads for plane xo
+        chunks(pstart[xo], pstart[xo + 1], xo, dybuf(xo));
+        if constexpr (REG)  // a slot no warp reads for plane xo
           if (next) st.store(slot(qn), t);
         __syncthreads();  // the ring slot and the dy buffer are reused
       }
@@ -790,26 +1095,37 @@ __global__ void __launch_bounds__(THREADS, MCfg<TX, CI, CO, BS>::MIN_CTAS)
     }
   }
 
-  // fragment (unit, n8 tile): lane 4g + q holds (m g, n 2q, 2q + 1) and
-  // (m g + 8, n 2q, 2q + 1) of its m16 x n8 tile
+  // fragment (unit, n8 tile): lane 4g + q holds (row g, n 2q, 2q + 1) and
+  // (row g + 8, n 2q, 2q + 1) of its m16 x n8 tile.  bf16: row m of m16
+  // tile mt is channel 16 mt + m of the unit's tap; 3xTF32: rows g and g +
+  // 8 are rows 2g and 2g + 1 of the unit, row R of the (tap, ci) space
+  // channel R % CIT of tap R / CIT.
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int j = 0; j < C::U; ++j) {
     const int u = warp + j * WARPS;
     if (u >= C::UNITS) break;
-    const int tap = u / C::MT, mt = u % C::MT;
-    float* out = part + ((size_t)blockIdx.x * 27 + tap) * CI * CO;
 #pragma unroll
-    for (int nt = 0; nt < C::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = mt * 16 + g + 8 * h, n = nt * 8 + 2 * q;
+    for (int h = 0; h < 2; ++h) {
+      int tap, m;
+      if constexpr (TF) {
+        const int row = u * 16 + 2 * g + h;
+        tap = row / C::CIT, m = row % C::CIT;
+        if (tap >= 27) continue;
+      } else {
+        tap = u / C::MT, m = u % C::MT * 16 + g + 8 * h;
         if (m >= C::CIT) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (n + e < C::COT)
-            out[(ci0 + m) * CO + co0 + n + e] = acc[j][nt][2 * h + e];
       }
+      float* out = part + ((size_t)blockIdx.x * 27 + tap) * CI * CO +
+                   (size_t)(ci0 + m) * CO + co0;
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = nt * 8 + 2 * q + e;
+          if (n < C::COT) out[n] = acc[j][nt][2 * h + e];
+        }
+    }
   }
 }
 
@@ -982,12 +1298,12 @@ int launch(const void* x, const void* dy, const void* nbrs, const void* mask,
     return -2;  // the wrapper's plan is not this instance's
   cudaError_t e;
   if constexpr (PL.mma) {
-    auto kern = wgrad_mma_kernel<TX, CI, CO, BS>;
+    auto kern = wgrad_mma_kernel<TX, TG, CI, CO, BS>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              PL.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<dim3(PL.g, PL.splits), THREADS, PL.smem, stream>>>(
-        static_cast<const TX*>(x), static_cast<const __nv_bfloat16*>(dy),
+        static_cast<const TX*>(x), static_cast<const TG*>(dy),
         static_cast<const int*>(nbrs), static_cast<const uint8_t*>(mask),
         static_cast<const int*>(count), static_cast<float*>(part));
   } else {

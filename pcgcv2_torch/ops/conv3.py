@@ -56,11 +56,13 @@ live slots (occupied slots of rows < count, where the forward wrote):
   pairs, `WGRAD_PAIRS`): G persistent CTAs per channel split
   (`wgrad_plan`) walk the live rows, read each once for all 27 taps over
   staged input planes, and sum in a fixed order; x is read as the grid
-  stores it.  bf16 dy (the training step's) runs on the tensor cores,
-  mma.sync m16n8k16 with the listed voxels as K over bf16 planes, each
-  lane's ldmatrix row the staged voxel v + tap of its own list entry;
-  f32 dy on the CUDA cores, f32 FMAs.  Its plain version is
-  `conv3_wgrad_plain`;
+  stores it.  The sums run on the tensor cores with the listed voxels as
+  K: bf16 dy on mma.sync m16n8k16 over bf16 planes, each lane's ldmatrix
+  row the staged voxel v + tap of its own list entry; f32 dy in 3xTF32 on
+  mma.sync m16n8k8, both operands split into tf32 hi and lo in the
+  registers, each lane's shared load the staged voxel v + tap of its own
+  list entry.  ci below 8 stays on the CUDA cores, f32 FMAs.  Its plain
+  version is `conv3_wgrad_plain`;
 * dbias is one masked sum.
 """
 
@@ -754,7 +756,8 @@ class WgradPlan(NamedTuple):
     splits: int  # (ci tile, co tile) pairs
     g: int       # persistent CTAs per split; rows of the `part` workspace
     smem: int    # dynamic shared memory per CTA, bytes
-    mma: bool    # the products on mma.sync m16n8k16, else the CUDA cores
+    mma: bool    # the products on mma.sync (bf16 dy m16n8k16, f32 dy
+                 # 3xTF32 m16n8k8), else the CUDA cores
 
 
 WGRAD_THREADS = 256
@@ -766,9 +769,12 @@ WGRAD_SMEM_MAX = 232448 - 9216
 WGRAD_SMEM_MMA = 232448 // 2 - 9216 - 1024
 _WG_CTAS = 512  # G x splits, about
 _WG_AHEAD = 1   # planes staged ahead of their use
-# bf16 dy runs on mma.sync where ci >= WGRAD_MMA_MIN_CI (a co below 8
+# dy runs on mma.sync where ci >= WGRAD_MMA_MIN_CI (bf16 with a co below 8
 # padded to 8), as the kernel's MMA_MIN_CI; below it on the CUDA cores
 WGRAD_MMA_MIN_CI = 8
+# f32 dy (3xTF32) also needs co >= WGRAD_TF32_MIN_CO, as the kernel's
+# MMA_MIN_CO_F32: the narrower co were faster on the CUDA cores
+WGRAD_TF32_MIN_CO = 16
 
 
 def _wgrad_plan_for(ci, co, sx, sg, bs, cit, cot) -> WgradPlan:
@@ -818,29 +824,76 @@ def wgrad_mma_smem(bs: int, ci_tile: int, co_tile: int) -> int:
     return (3 + _WG_AHEAD) * hs * hs * cip * 2 + (1 + _WG_AHEAD) * bs * bs * cop * 2
 
 
+def wgrad_tf32_units(ci_tile: int) -> int:
+    """m16 tiles of a 3xTF32 CTA: the 27 x ci_tile (tap, ci) rows, row R
+    channel R % ci_tile of tap R // ci_tile, so that a ci tile of 8 packs
+    two taps into one tile (the last one padded)."""
+    return -(-27 * ci_tile // 16)
+
+
+def wgrad_tf32_acc(ci_tile: int, co_tile: int) -> int:
+    """f32 accumulators per thread of a 3xTF32 CTA: each warp owns every
+    WGRAD_WARPS-th m16 tile with every n8 tile of the co tile, 4 floats
+    per fragment and lane."""
+    return -(-wgrad_tf32_units(ci_tile) // WGRAD_WARPS) * (co_tile // 8) * 4
+
+
+def wgrad_tf32_row(ci_tile: int, sx: int) -> int:
+    """Bytes of a staged voxel of a 3xTF32 CTA: x's channels in its own
+    dtype (`sx` bytes each), at least one 32-byte row."""
+    return max(ci_tile * sx, 32)
+
+
+def wgrad_tf32_smem(bs: int, ci_tile: int, co_tile: int, sx: int) -> int:
+    """Dynamic shared memory of a 3xTF32 CTA: staged voxels of
+    `wgrad_tf32_row` bytes, f32 dy rows of the co tile; 16^3 a ring of 4
+    planes and dy of 2 planes' slots, 8^3 an item's whole halo and the dy
+    of its slots."""
+    hs, xb, db = bs + 2, wgrad_tf32_row(ci_tile, sx), co_tile * 4
+    if bs == 8:
+        return hs ** 3 * xb + bs ** 3 * db
+    return (3 + _WG_AHEAD) * hs * hs * xb + (1 + _WG_AHEAD) * bs * bs * db
+
+
+def wgrad_tf32_smem_max(bs: int) -> int:
+    """The 3xTF32 CTA's shared-memory limit, two CTAs to an SM: half the
+    SM's 233472 bytes, less the 1 KB a CTA reserves and its static arrays
+    (the slot list, 2 bytes a slot, and 512 bytes)."""
+    return 233472 // 2 - 1024 - (2 * bs ** 3 + 512)
+
+
 @functools.lru_cache(maxsize=None)
 def wgrad_plan(ci: int, co: int, x_dtype, compute_dtype,
                bs: Optional[int] = None,
-               mma_min_ci: Optional[int] = None) -> WgradPlan:
+               mma_min_ci: int = WGRAD_MMA_MIN_CI,
+               tf32_min_co: int = WGRAD_TF32_MIN_CO) -> WgradPlan:
     """The split of conv3_wgrad.cu for ci, co in {1, 4, 8, 16, 32, 64}, x
     stored in `x_dtype` and dy in `compute_dtype`, at block side `bs`
     (default blocks.BS): the widest co tile, then the widest ci tile, that
-    fits.  bf16 dy with ci >= `mma_min_ci` (default WGRAD_MMA_MIN_CI)
-    runs on mma.sync: at most WGRAD_ACC_MAX
-    accumulators per thread (`wgrad_mma_acc`) and `wgrad_mma_smem` within
-    WGRAD_SMEM_MMA.  The rest runs on the CUDA cores: at most
-    WGRAD_ACC_MAX accumulators per thread and a ring of 4 staged x planes
-    and two dy planes within WGRAD_SMEM_MAX."""
+    fits.  ci >= `mma_min_ci` runs on mma.sync: bf16 dy with at most
+    WGRAD_ACC_MAX accumulators per thread (`wgrad_mma_acc`) and
+    `wgrad_mma_smem` within WGRAD_SMEM_MMA; f32 dy (3xTF32) where also co
+    >= `tf32_min_co`, with tiles of ci and co from 8, `wgrad_tf32_acc` and
+    `wgrad_tf32_smem` within `wgrad_tf32_smem_max`.  The rest runs on the
+    CUDA cores: at most WGRAD_ACC_MAX accumulators per thread and a ring
+    of 4 staged x planes and two dy planes within WGRAD_SMEM_MAX."""
     bs = bs or B.BS
-    mma_min_ci = WGRAD_MMA_MIN_CI if mma_min_ci is None else mma_min_ci
     sx, sg = x_dtype.itemsize, compute_dtype.itemsize
     tiles = [(cot, cit) for cot in (64, 32, 16, 8, 4, 2, 1) if cot <= co
              for cit in (64, 32, 16, 8, 4, 2, 1) if cit <= ci]
-    if sg == 2 and ci >= mma_min_ci:
+    if ci >= mma_min_ci and (sg == 2 or co >= tf32_min_co):
+        if sg == 4:
+            tiles = [(cot, cit) for cot, cit in tiles if min(cot, cit) >= 8]
         for cot, cit in tiles:
-            smem = wgrad_mma_smem(bs, cit, cot)
-            if (wgrad_mma_acc(cit, cot) <= WGRAD_ACC_MAX
-                    and smem <= WGRAD_SMEM_MMA):
+            if sg == 2:
+                smem = wgrad_mma_smem(bs, cit, cot)
+                fits = (wgrad_mma_acc(cit, cot) <= WGRAD_ACC_MAX
+                        and smem <= WGRAD_SMEM_MMA)
+            else:
+                smem = wgrad_tf32_smem(bs, cit, cot, sx)
+                fits = (wgrad_tf32_acc(cit, cot) <= WGRAD_ACC_MAX
+                        and smem <= wgrad_tf32_smem_max(bs))
+            if fits:
                 splits = (ci // cit) * (co // cot)
                 return WgradPlan(cit, cot, 0, 0, 0, 0, splits,
                                  max(8, _WG_CTAS // splits), smem, True)
@@ -899,7 +952,8 @@ def conv3_wgrad(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,
     csrc/conv3_wgrad.cu (the pairs of `WGRAD_PAIRS`; x read as the grid
     stores it, rounded to bf16 in the kernel under bf16 compute) with
     `wgrad_plan`'s split, on mma.sync where the plan says `mma` (bf16
-    compute) and on the CUDA cores otherwise, or raise.  Counts launches in
+    m16n8k16, f32 3xTF32 m16n8k8) and on the CUDA cores otherwise, or
+    raise.  Counts launches in
     `conv3_wgrad.launches`: like `conv3.launches`, at a CUDA graph's
     capture and not at its replays."""
     cd = compute_dtype or B.COMPUTE_DTYPE

@@ -2,10 +2,12 @@
 (csrc/conv3_wgrad.cu), on the CPU.
 
 `wgrad_plan` mirrors the kernel's own `make_plan`: every CTA computes the
-27 taps of one (ci tile, co tile) split; on the CUDA cores (f32 dy) each
-thread a tm x tn tile of one tap's block, over every ksplit-th voxel, on
-mma.sync (bf16 dy) each warp the m16 x n8 fragments of its (tap, m16
-tile) units (tests/test_torch_conv3_wgrad_tc.py emulates that path).  These tests walk that mapping as
+27 taps of one (ci tile, co tile) split; on mma.sync each warp the m16 x
+n8 fragments of its units, (tap, m16 tile) for bf16 dy and m16 tiles of
+the (tap, ci) rows for f32 dy (3xTF32; tests/test_torch_conv3_wgrad_tc.py
+and tests/test_torch_conv3_wgrad_tf32.py emulate those paths), on the CUDA
+cores each thread a tm x tn tile of one tap's block, over every ksplit-th
+voxel.  These tests walk that mapping as
 the kernel does and check that it covers every entry of dW exactly once
 and fits the card.  The kernel's results are held against
 `conv3_wgrad_plain` by chip_smoke.py phase 7a, and `conv3_wgrad_plain`
@@ -41,12 +43,37 @@ def _mma_entries(p):
     return np.array(out)
 
 
-def _check_tiles(p, bs):
+def _tf32_entries(p):
+    """Flat [tap, ci_tile, co_tile] entries that a 3xTF32 CTA's warps
+    store: m16 tile u holds rows 16u .. 16u + 15 of the (tap, ci) space
+    (row R channel R % ci_tile of tap R // ci_tile); lane 4g + q holds its
+    rows 2g, 2g + 1 and columns 2q, 2q + 1 of each n8 tile; rows past tap
+    26 and columns past the co tile are padding."""
+    out = []
+    for u in range(TK.wgrad_tf32_units(p.ci_tile)):
+        for nt in range(p.co_tile // 8):
+            for lane in range(32):
+                for r in range(4):
+                    row = u * 16 + 2 * (lane // 4) + r // 2
+                    n = nt * 8 + 2 * (lane % 4) + r % 2
+                    if row < 27 * p.ci_tile and n < p.co_tile:
+                        out.append(row * p.co_tile + n)
+    return np.array(out)
+
+
+def _check_tiles(p, bs, x_dtype, cd):
     """One CTA's tiles cover its 27 x ci_tile x co_tile sums once and fit:
     the CUDA cores' thread tiles (k-split over the voxels) and ring of 4
-    planes with y rows padded by 16 bytes, or (bf16 dy) the mma.sync warp
-    fragments and bf16 planes within half an SM's shared memory."""
-    if p.mma:
+    planes with y rows padded by 16 bytes, or the mma.sync warp fragments
+    and staged planes within half an SM's shared memory (bf16 dy: bf16
+    planes; f32 dy: planes in x's dtype)."""
+    if p.mma and cd == F32:
+        ent = _tf32_entries(p)
+        sx = torch.empty((), dtype=x_dtype).element_size()
+        assert TK.wgrad_tf32_acc(p.ci_tile, p.co_tile) <= TK.WGRAD_ACC_MAX
+        assert p.smem == TK.wgrad_tf32_smem(bs, p.ci_tile, p.co_tile, sx)
+        assert p.smem <= TK.wgrad_tf32_smem_max(bs)
+    elif p.mma:
         ent = _mma_entries(p)
         assert TK.wgrad_mma_acc(p.ci_tile, p.co_tile) <= TK.WGRAD_ACC_MAX
         assert p.smem == TK.wgrad_mma_smem(bs, p.ci_tile, p.co_tile)
@@ -87,8 +114,9 @@ def test_wgrad_plan_covers_dw_once_and_fits(ci, co, x_dtype, cd):
     assert p.splits == (ci // p.ci_tile) * (co // p.co_tile)
     # the threads (or warps) of a CTA cover its 27 x ci_tile x co_tile
     # sums once
-    _check_tiles(p, 16)
-    assert p.mma == (cd == BF16 and ci >= TK.WGRAD_MMA_MIN_CI)
+    _check_tiles(p, 16, x_dtype, cd)
+    assert p.mma == (ci >= TK.WGRAD_MMA_MIN_CI
+                     and (cd == BF16 or co >= TK.WGRAD_TF32_MIN_CO))
     # the splits (co tile fastest, as blockIdx.y) cover dW[27, ci, co] once
     seen = np.zeros((27, ci, co), dtype=np.int64)
     for split in range(p.splits):
@@ -117,10 +145,15 @@ def test_wgrad_plan_keeps_narrow_instances_whole():
     for x_dtype, cd in DTYPES:
         p = TK.wgrad_plan(16, 4, x_dtype, cd)
         assert (p.splits, p.g, p.ci_tile, p.co_tile) == (1, 512, 16, 4)
+    # f32 dy (3xTF32, two CTAs on an SM): 64 -> 64 takes a co tile of 32
+    # (f32 dy of two 256-slot planes of 64 channels is 131,072 B) over a
+    # ci tile of 8 (a ring of 4 x 41,472 B), 107,008 B in all
     f32 = TK.wgrad_plan(64, 64, F32, F32)
-    assert (f32.ci_tile, f32.co_tile, f32.splits, f32.g) == (8, 64, 8, 64)
-    # f32 64 -> 16: a 64-channel ring (4 x 82,944 B) does not fit
-    assert TK.wgrad_plan(64, 16, F32, F32).ci_tile == 32
+    assert (f32.ci_tile, f32.co_tile, f32.splits, f32.g) == (8, 32, 16, 32)
+    assert f32.smem == TK.wgrad_tf32_smem_max(16) == 107008
+    # f32 64 -> 16: a 16-channel ring (4 x 82,944 B) with 32,768 B of dy
+    # does not fit; 64 -> 8 stays on the CUDA cores, whole
+    assert TK.wgrad_plan(64, 16, F32, F32).ci_tile == 8
     assert TK.wgrad_plan(64, 8, BF16, F32).ci_tile == 64
     # bf16 dy (mma.sync): 64 -> 16 splits ci for the accumulators (two
     # tiles of 32: 14 units of a warp x 2 n8 tiles x 4 > 64), 64 -> 8 for
@@ -192,8 +225,9 @@ def test_wgrad_plan_at_bs8_covers_dw_once_and_fits(ci, co, x_dtype, cd):
     p = TK.wgrad_plan(ci, co, x_dtype, cd, bs=8)
     assert ci % p.ci_tile == 0 and co % p.co_tile == 0
     assert p.splits == (ci // p.ci_tile) * (co // p.co_tile)
-    _check_tiles(p, 8)
-    assert p.mma == (cd == BF16 and ci >= TK.WGRAD_MMA_MIN_CI)
+    _check_tiles(p, 8, x_dtype, cd)
+    assert p.mma == (ci >= TK.WGRAD_MMA_MIN_CI
+                     and (cd == BF16 or co >= TK.WGRAD_TF32_MIN_CO))
     sx = torch.empty((), dtype=x_dtype).element_size()
     sg = torch.empty((), dtype=cd).element_size()
     ring = 4 * 10 * (10 * p.ci_tile * sx + 16) + 2 * 64 * p.co_tile * sg

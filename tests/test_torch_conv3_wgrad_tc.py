@@ -107,11 +107,22 @@ def test_mma_plan_covers_dw_once_and_fits(bs, ci, co, x_dtype):
 
 
 def test_mma_plan_fields():
-    """f32 dy stays on the CUDA cores with its plan; bf16 dy runs on
-    mma.sync from ci = `mma_min_ci` (default 8), a co below 8 included."""
+    """f32 dy runs on mma.sync too, from ci = `mma_min_ci` (default 8) and
+    co = `tf32_min_co` (default 16; 3xTF32, its own plan:
+    test_torch_conv3_wgrad_tf32.py), and on the CUDA cores below them;
+    bf16 dy runs on mma.sync from ci = `mma_min_ci`, a co below 8
+    included."""
     for ci, co in ((16, 16), (64, 64), (16, 4)):
         f32 = TK.wgrad_plan(ci, co, F32, F32)
-        assert not f32.mma and f32.tm * f32.tn > 0
+        assert f32.mma == (co >= TK.WGRAD_TF32_MIN_CO)
+        if f32.mma:
+            assert f32.tm * f32.tn == 0
+            assert f32.smem == TK.wgrad_tf32_smem(16, f32.ci_tile,
+                                                  f32.co_tile, 4)
+        else:
+            assert f32.tm * f32.tn > 0
+        simt = TK.wgrad_plan(ci, co, F32, F32, mma_min_ci=128)
+        assert not simt.mma and simt.tm * simt.tn > 0
     for ci, co in ((16, 4), (16, 1), (64, 1), (8, 8)):
         assert TK.wgrad_plan(ci, co, F32, BF16).mma
     for ci, co in ((1, 16), (4, 4), (4, 8)):
