@@ -1,0 +1,8 @@
+"""Share of the traced `train_scanned` call in which no operation ran on
+the device, in %."""
+
+from h100bench.readers import idle_pct
+
+
+def read(rec):
+    return idle_pct(rec)
