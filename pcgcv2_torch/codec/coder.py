@@ -36,6 +36,7 @@ from pcgcv2_torch.config import BlockPlan, ModelConfig
 from pcgcv2_torch.data import io as pcio
 from pcgcv2_torch.data.voxelize import unique_rows
 from pcgcv2_torch.models.entropy import pmf_host
+from pcgcv2_torch.obs import span
 from pcgcv2_torch.ops import blocks as B
 
 
@@ -86,33 +87,39 @@ class FeatureCoder:
         self._pmf_fn = pmf_fn  # (min_v, num_symbols) -> [C, S]
 
     def encode(self, feats: np.ndarray, postfix: str = "") -> None:
-        vals = np.round(np.asarray(feats, dtype=np.float64)).astype(np.int32)
-        min_v = int(vals.min())
-        max_v = int(vals.max())
-        s = max_v - min_v + 1
-        cdf = native.quantize_cdf(np.asarray(self._pmf_fn(min_v, s)))
-        blob = native.rans_encode(cdf, (vals - min_v).reshape(-1))
-        with open(self.filename + postfix + "_F.bin", "wb") as f:
-            f.write(blob)
-        with open(self.filename + postfix + "_H.bin", "wb") as f:
-            f.write(np.array(vals.shape, dtype=np.int32).tobytes())
-            f.write(np.array(1, dtype=np.int8).tobytes())
-            f.write(np.array([min_v], dtype=np.float32).tobytes())
-            f.write(np.array([max_v], dtype=np.float32).tobytes())
+        with span("pcgc.rans.encode"):
+            vals = np.round(np.asarray(feats, dtype=np.float64)).astype(
+                np.int32)
+            min_v = int(vals.min())
+            max_v = int(vals.max())
+            s = max_v - min_v + 1
+            cdf = native.quantize_cdf(np.asarray(self._pmf_fn(min_v, s)))
+            blob = native.rans_encode(cdf, (vals - min_v).reshape(-1))
+            with open(self.filename + postfix + "_F.bin", "wb") as f:
+                f.write(blob)
+            with open(self.filename + postfix + "_H.bin", "wb") as f:
+                f.write(np.array(vals.shape, dtype=np.int32).tobytes())
+                f.write(np.array(1, dtype=np.int8).tobytes())
+                f.write(np.array([min_v], dtype=np.float32).tobytes())
+                f.write(np.array([max_v], dtype=np.float32).tobytes())
 
     def decode(self, postfix: str = "") -> np.ndarray:
-        with open(self.filename + postfix + "_H.bin", "rb") as f:
-            shape = np.frombuffer(f.read(8), dtype=np.int32)
-            n_minv = int(np.frombuffer(f.read(1), dtype=np.int8)[0])
-            min_v = int(np.frombuffer(f.read(4 * n_minv), dtype=np.float32)[0])
-            max_v = int(np.frombuffer(f.read(4 * n_minv), dtype=np.float32)[0])
-        with open(self.filename + postfix + "_F.bin", "rb") as f:
-            blob = f.read()
-        s = max_v - min_v + 1
-        cdf = native.quantize_cdf(np.asarray(self._pmf_fn(min_v, s)))
-        syms = native.rans_decode(cdf, blob, int(shape[0]) * int(shape[1]))
-        vals = syms.reshape(int(shape[0]), int(shape[1])) + min_v
-        return vals.astype(np.float32)
+        with span("pcgc.rans.decode"):
+            with open(self.filename + postfix + "_H.bin", "rb") as f:
+                shape = np.frombuffer(f.read(8), dtype=np.int32)
+                n_minv = int(np.frombuffer(f.read(1), dtype=np.int8)[0])
+                min_v = int(np.frombuffer(f.read(4 * n_minv),
+                                          dtype=np.float32)[0])
+                max_v = int(np.frombuffer(f.read(4 * n_minv),
+                                          dtype=np.float32)[0])
+            with open(self.filename + postfix + "_F.bin", "rb") as f:
+                blob = f.read()
+            s = max_v - min_v + 1
+            cdf = native.quantize_cdf(np.asarray(self._pmf_fn(min_v, s)))
+            syms = native.rans_decode(cdf, blob,
+                                      int(shape[0]) * int(shape[1]))
+            vals = syms.reshape(int(shape[0]), int(shape[1])) + min_v
+            return vals.astype(np.float32)
 
 
 class CoordinateCoder:
@@ -126,26 +133,28 @@ class CoordinateCoder:
 
     def encode(self, coords: np.ndarray, postfix: str = "") -> None:
         path = self.filename + postfix + "_C.bin"
-        if self.use_gpcc:
-            ply = path + ".tmp.ply"
-            pcio.write_ply_ascii_geo(ply, coords)
-            gpcc.gpcc_encode(ply, path)
-            os.remove(ply)
-        else:
-            with open(path, "wb") as f:
-                f.write(octree.encode(coords))
+        with span("pcgc.octree.encode"):
+            if self.use_gpcc:
+                ply = path + ".tmp.ply"
+                pcio.write_ply_ascii_geo(ply, coords)
+                gpcc.gpcc_encode(ply, path)
+                os.remove(ply)
+            else:
+                with open(path, "wb") as f:
+                    f.write(octree.encode(coords))
 
     def decode(self, postfix: str = "") -> np.ndarray:
         path = self.filename + postfix + "_C.bin"
-        with open(path, "rb") as f:
-            data = f.read()
-        if data[:4] in (octree.MAGIC, octree.MAGIC2, octree.MAGIC3):
-            return octree.decode(data)
-        ply = path + ".tmp.ply"
-        gpcc.gpcc_decode(path, ply)
-        coords = pcio.read_ply_geo(ply)
-        os.remove(ply)
-        return coords
+        with span("pcgc.octree.decode"):
+            with open(path, "rb") as f:
+                data = f.read()
+            if data[:4] in (octree.MAGIC, octree.MAGIC2, octree.MAGIC3):
+                return octree.decode(data)
+            ply = path + ".tmp.ply"
+            gpcc.gpcc_decode(path, ply)
+            coords = pcio.read_ply_geo(ply)
+            os.remove(ply)
+            return coords
 
 
 class Coder:
@@ -224,94 +233,117 @@ class Coder:
 
         Returns (bottleneck coords [ny, 3] stride-normalized, rounded
         features [ny, C]) in canonical order."""
-        coords = unique_rows(coords)
-        n = len(coords)
-        counts = block_counts(coords)
-        plan = self._plan_from_counts(counts)
-        rows = self._rows(coords)
-        valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        y, nums, n_in = self.model.encode_fn(rows, valid, plan)
-        ny = int(y.voxel_count())
-        yc, yf, _ = B.extract(y, max(ny, 1))
-        meta = torch.stack([y.dropped, n_in.to(torch.int32),
-                            nums[0][0], nums[1][0], nums[2][0]]).cpu()
-        n_drop, n_unique = int(meta[0]), int(meta[1])
-        if n_drop or n_unique != n:
-            raise RuntimeError(
-                f"capacity plan too small for frame ({n} pts, res "
-                f"{self.res}): dropped={n_drop} n_in={n_unique}; raise "
-                f"BlockPlan.for_cloud sizing")
-        num_points = [int(v) for v in meta[2:5]]
-        with open(self.filename + postfix + "_num_points.bin", "wb") as f:
-            f.write(np.array(num_points, dtype=np.int32).tobytes())
-            f.write(np.array(counts, dtype=np.int32).tobytes())
-
-        ds = (yc[:ny, 1:] // 8).cpu().numpy().astype(np.int32)
-        feats = yf[:ny].to(torch.float32).cpu().numpy()
-        order = canonical_order(ds)
-        ds_coords, feats = ds[order], feats[order]
-        self.feature_coder.encode(feats, postfix)
-        self.coordinate_coder.encode(ds_coords, postfix)
-        return ds_coords, np.round(feats)
+        with span("pcgc.encode"):
+            with span("pcgc.encode.unique_rows"):
+                coords = unique_rows(coords)
+            n = len(coords)
+            with span("pcgc.encode.block_counts"):
+                counts = block_counts(coords)
+                plan = self._plan_from_counts(counts)
+            with span("pcgc.encode.upload"):
+                rows = self._rows(coords)
+                valid = torch.ones(n, dtype=torch.bool, device=self.device)
+            with span("pcgc.encode.network"):
+                y, nums, n_in = self.model.encode_fn(rows, valid, plan)
+            with span("pcgc.encode.fetch"):
+                ny = int(y.voxel_count())
+                yc, yf, _ = B.extract(y, max(ny, 1))
+                meta = torch.stack([y.dropped, n_in.to(torch.int32),
+                                    nums[0][0], nums[1][0],
+                                    nums[2][0]]).cpu()
+                n_drop, n_unique = int(meta[0]), int(meta[1])
+                if n_drop or n_unique != n:
+                    raise RuntimeError(
+                        f"capacity plan too small for frame ({n} pts, res "
+                        f"{self.res}): dropped={n_drop} n_in={n_unique}; "
+                        f"raise BlockPlan.for_cloud sizing")
+                ds = (yc[:ny, 1:] // 8).cpu().numpy().astype(np.int32)
+                feats = yf[:ny].to(torch.float32).cpu().numpy()
+            with span("pcgc.encode.order"):
+                num_points = [int(v) for v in meta[2:5]]
+                with open(self.filename + postfix + "_num_points.bin",
+                          "wb") as f:
+                    f.write(np.array(num_points, dtype=np.int32).tobytes())
+                    f.write(np.array(counts, dtype=np.int32).tobytes())
+                order = canonical_order(ds)
+                ds_coords, feats = ds[order], feats[order]
+            self.feature_coder.encode(feats, postfix)
+            self.coordinate_coder.encode(ds_coords, postfix)
+            return ds_coords, np.round(feats)
 
     @torch.inference_mode()
     def decode(self, rho: float = 1.0, postfix: str = "") -> np.ndarray:
-        coords = self.coordinate_coder.decode(postfix)
-        coords = coords[canonical_order(coords)]
-        feats = self.feature_coder.decode(postfix)
-        m = len(coords)
-        assert feats.shape[0] == m, "feature/coordinate count mismatch"
+        with span("pcgc.decode"):
+            coords = self.coordinate_coder.decode(postfix)
+            feats = self.feature_coder.decode(postfix)
+            with span("pcgc.decode.unpack"):
+                coords = coords[canonical_order(coords)]
+                m = len(coords)
+                assert feats.shape[0] == m, \
+                    "feature/coordinate count mismatch"
 
-        with open(self.filename + postfix + "_num_points.bin", "rb") as f:
-            head = np.frombuffer(f.read(28), dtype=np.int32)
-        num_points = head[:3].tolist()
-        n_frame = num_points[-1]
-        num_points[-1] = int(rho * num_points[-1])
+                with open(self.filename + postfix + "_num_points.bin",
+                          "rb") as f:
+                    head = np.frombuffer(f.read(28), dtype=np.int32)
+                num_points = head[:3].tolist()
+                n_frame = num_points[-1]
+                num_points[-1] = int(rho * num_points[-1])
 
-        # Plan ladder: exact-fit caps from the header's block counts when
-        # present, then the density-prior plan as the overflow retry tier.
-        plans = []
-        if head.size == 7:
-            p = self._plan_from_counts(head[3:7])
-            if rho > 1.0:
-                # rho densifies only the final top-k: let the final
-                # post-prune cap reach the candidate cap
-                p = dataclasses.replace(
-                    p, dec_nb=(p.dec_nb[0], p.dec_nb[1], p.up_cap(2)))
-            plans.append(p)
-        plans.append(self._plan_for(max(n_frame, num_points[-1])))
+                # Plan ladder: exact-fit caps from the header's block
+                # counts when present, then the density-prior plan as the
+                # overflow retry tier.
+                plans = []
+                if head.size == 7:
+                    p = self._plan_from_counts(head[3:7])
+                    if rho > 1.0:
+                        # rho densifies only the final top-k: let the
+                        # final post-prune cap reach the candidate cap
+                        p = dataclasses.replace(
+                            p, dec_nb=(p.dec_nb[0], p.dec_nb[1],
+                                       p.up_cap(2)))
+                    plans.append(p)
+                plans.append(self._plan_for(max(n_frame, num_points[-1])))
 
-        res_y = max(1, self.res // 8)
-        rows = self._rows(coords * 8)
-        valid = torch.ones(m, dtype=torch.bool, device=self.device)
-        y_feats = torch.from_numpy(feats).to(self.device, B.COMPUTE_DTYPE)
-        nums = torch.tensor(num_points, dtype=torch.int32, device=self.device)
-        nums_list = [nums[0:1], nums[1:2], nums[2:3]]
-        for tier, plan in enumerate(plans):
-            n_slabs = self.streamed_slabs or (8 if plan.res >= 2048 else 0)
-            y = B.blockify(rows, y_feats, valid, plan.nb[3], stride=8,
-                           res=res_y, num_batches=1)
-            if n_slabs:
-                out, dropped = self._decode_streamed(y, nums_list, plan,
-                                                     n_slabs)
-            else:
-                out = self.model.decode_fn(y, nums_list, plan)
-                dropped = out.dropped
-            dropped = int(dropped)
-            if not dropped:
-                break
-            if tier + 1 == len(plans):
-                raise RuntimeError(
-                    f"decode overflowed the capacity plan (dropped="
-                    f"{dropped}); raise BlockPlan.for_cloud sizing")
-            logging.getLogger(__name__).warning(
-                "exact-fit decode caps overflowed (dropped=%d); retrying "
-                "on the density-prior plan", dropped)
-        bc, bits = B.pack_occupancy(out)
-        n_out = int(out.voxel_count())
-        result = B.host_extract(bc.cpu().numpy(), bits.cpu().numpy())
-        assert len(result) == n_out, "host extraction count mismatch"
-        return result
+                res_y = max(1, self.res // 8)
+                rows = self._rows(coords * 8)
+                valid = torch.ones(m, dtype=torch.bool, device=self.device)
+                y_feats = torch.from_numpy(feats).to(self.device,
+                                                     B.COMPUTE_DTYPE)
+                nums = torch.tensor(num_points, dtype=torch.int32,
+                                    device=self.device)
+                nums_list = [nums[0:1], nums[1:2], nums[2:3]]
+            for tier, plan in enumerate(plans):
+                n_slabs = self.streamed_slabs or (8 if plan.res >= 2048
+                                                  else 0)
+                # the first tier is the network; each later one a retry
+                with span("pcgc.decode.retry" if tier
+                          else "pcgc.decode.network"):
+                    y = B.blockify(rows, y_feats, valid, plan.nb[3],
+                                   stride=8, res=res_y, num_batches=1)
+                    if n_slabs:
+                        out, dropped = self._decode_streamed(
+                            y, nums_list, plan, n_slabs)
+                    else:
+                        out = self.model.decode_fn(y, nums_list, plan)
+                        dropped = out.dropped
+                with span("pcgc.decode.fetch"):
+                    dropped = int(dropped)
+                    if not dropped:
+                        bc, bits = B.pack_occupancy(out)
+                        n_out = int(out.voxel_count())
+                        bc, bits = bc.cpu().numpy(), bits.cpu().numpy()
+                        break
+                if tier + 1 == len(plans):
+                    raise RuntimeError(
+                        f"decode overflowed the capacity plan (dropped="
+                        f"{dropped}); raise BlockPlan.for_cloud sizing")
+                logging.getLogger(__name__).warning(
+                    "exact-fit decode caps overflowed (dropped=%d); "
+                    "retrying on the density-prior plan", dropped)
+            with span("pcgc.decode.host_extract"):
+                result = B.host_extract(bc, bits)
+            assert len(result) == n_out, "host extraction count mismatch"
+            return result
 
     def _decode_streamed(self, y: B.BlockGrid, nums_list, plan: BlockPlan,
                          n_slabs: int):
@@ -331,37 +363,44 @@ class Coder:
         counted and retried on the next plan tier.
         """
         model = self.model
-        out = model.decode_coarse_fn(y, nums_list[:2], plan)
-        cand_cap = plan.up_cap(2)
-        cand = B.conv_up_structure(out, cand_cap)
-        # a slab's blocks are a subset of the whole grid's, so its caps
-        # never need to exceed the whole grid's
-        sub_in_cap = min(out.nb_cap, max(32, plan.dec_nb[1] * 2 // n_slabs))
-        sub_cand_cap = min(cand_cap, max(256, cand_cap * 2 // n_slabs))
-        logits = torch.zeros(cand_cap, B.VOL, dtype=torch.float32,
-                             device=self.device)
-
-        bx = out.coords[:, 1]
-        ranks = (torch.arange(1, n_slabs, device=self.device) * out.count
-                 // n_slabs).clamp(0, out.nb_cap - 1)
-        bounds = [0] + bx[ranks].tolist() + [B.grid_dim(out.res)]
+        with span("pcgc.decode.coarse"):
+            out = model.decode_coarse_fn(y, nums_list[:2], plan)
+            cand_cap = plan.up_cap(2)
+            cand = B.conv_up_structure(out, cand_cap)
+            # a slab's blocks are a subset of the whole grid's, so its
+            # caps never need to exceed the whole grid's
+            sub_in_cap = min(out.nb_cap,
+                             max(32, plan.dec_nb[1] * 2 // n_slabs))
+            sub_cand_cap = min(cand_cap, max(256, cand_cap * 2 // n_slabs))
+            logits = torch.zeros(cand_cap, B.VOL, dtype=torch.float32,
+                                 device=self.device)
+            bx = out.coords[:, 1]
+            ranks = (torch.arange(1, n_slabs, device=self.device)
+                     * out.count // n_slabs).clamp(0, out.nb_cap - 1)
+        with span("pcgc.decode.fetch"):
+            bounds = [0] + bx[ranks].tolist() + [B.grid_dim(out.res)]
         dropped = cand.dropped
         for ia, ib in zip(bounds[:-1], bounds[1:]):
-            sub = B.compact_where(out, (bx >= ia - 1) & (bx < ib + 1),
-                                  sub_in_cap)
-            cls = model.decode_stage2_fn(sub, sub_cand_cap)
-            del sub
-            # every sub-grid inherits out.dropped; count only the slab's own
-            dropped = dropped + (cls.dropped - out.dropped)
-            cx = cls.coords[:, 1]
-            rows = cand.table.long()[B._flat_block_key(cls.coords, cand.G)]
-            # interior candidate blocks only; the sentinel row stays zero
-            inner = ((cx >= 2 * ia) & (cx < 2 * ib) & cls.valid
-                     & (rows < cand_cap - 1))
-            logits[rows[inner]] = cls.feats[inner, :, 0].float()
-            del cls
-        keep = B.topk_mask(cand, logits, nums_list[2])
-        return B.prune(cand, keep), dropped
+            with span("pcgc.decode.slab"):
+                sub = B.compact_where(out, (bx >= ia - 1) & (bx < ib + 1),
+                                      sub_in_cap)
+                cls = model.decode_stage2_fn(sub, sub_cand_cap)
+                del sub
+                # every sub-grid inherits out.dropped; count only the
+                # slab's own
+                dropped = dropped + (cls.dropped - out.dropped)
+                cx = cls.coords[:, 1]
+                rows = cand.table.long()[B._flat_block_key(cls.coords,
+                                                           cand.G)]
+                # interior candidate blocks only; the sentinel row stays
+                # zero
+                inner = ((cx >= 2 * ia) & (cx < 2 * ib) & cls.valid
+                         & (rows < cand_cap - 1))
+                logits[rows[inner]] = cls.feats[inner, :, 0].float()
+                del cls
+        with span("pcgc.decode.topk"):
+            keep = B.topk_mask(cand, logits, nums_list[2])
+            return B.prune(cand, keep), dropped
 
     def bitstream_bytes(self, postfix: str = "") -> dict:
         """Sizes of the 4 bitstream files."""

@@ -82,6 +82,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pcgcv2_torch.obs import span
 from pcgcv2_torch.ops import blocks as B
 
 HS = B.BS + 2  # halo side
@@ -200,7 +201,8 @@ def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            with span("pcgc.conv3.build"):
+                lib = ctypes.CDLL(str(build()))
             vp = ctypes.c_void_p
             ci = ctypes.c_int
             lib.pcgc_conv3.restype = ci
@@ -390,39 +392,41 @@ def _tc_plan(ci: int, co: int, dtype, bs: int) -> TcPlan:
     two slots would cost CTAs per SM); the products on wgmma where
     max(co, 8) reaches `TC_WGMMA_MIN_N` and a chunk is 32 bytes deep (not
     bf16 at ci <= 8, which runs k8), else on mma.sync."""
-    sz = dtype.itemsize
-    cip, cop, ks = _tc_dims(ci, co, dtype)
-    parts = 2 if dtype == torch.float32 else 1
-    rs = cip + (16 // sz if (cip * sz // 16) % 2 == 0 else 0)
-    hs = bs + 2
-    ps = 2 if bs == 8 else 1
-    nbuf = 2 * ps + 2
-    ys = 2 if nbuf * hs * hs * rs * sz > TC_SMEM_MAX else 1
-    rows = bs // ys
-    xp = 4 if bs == 16 else 8
-    threads = ps * rows * bs
-    ring = nbuf * (rows + 2) * hs * rs * sz
-    grid = (bs // xp, ys)
-    wg = ks * sz == 32 and cop >= TC_WGMMA_MIN_N[dtype]
-    mma = "wgmma" if wg else "mma.sync"
-    kc, kb = cip // ks, 3 * parts * ks * cop * sz
-    cta = threads + 32  # and the producer warp
-    keep = min(_tc_fit(ring, cta), 2)
-    wb = packed_bytes(ci, co, dtype)
-    if ring + wb + 8 <= TC_SMEM_MAX and _tc_fit(ring + wb + 8, cta) >= keep:
-        return TcPlan(xp, rows, threads, ring + wb + 8, grid, ps, 1,
-                      _tc_kmax(kc, kb), mma, grid[0] * grid[1])
-    kg = _tc_kmax(kc, kb)
-    while kg > 1 and not _tc_keep_slots(ring, kg * kb, 9 * kc // kg, cta,
-                                        keep):
-        kg //= 2
-    if not _tc_keep_slots(ring, kg * kb, 9 * kc // kg, cta, keep):
-        kg = _tc_kmax(kc, kb)  # no step keeps them: fewer CTAs per SM
-    sb, nstep = kg * kb, 9 * kc // kg
-    ns = (_tc_keep_slots(ring, sb, nstep, cta, keep)
-          or _tc_keep_slots(ring, sb, nstep, cta, 1))
-    return TcPlan(xp, rows, threads, ring + ns * (sb + 16), grid, ps, ns, kg,
-                  mma, grid[0] * grid[1] * xp // ps)
+    with span("pcgc.conv3.plan"):  # a cache miss: one plan search
+        sz = dtype.itemsize
+        cip, cop, ks = _tc_dims(ci, co, dtype)
+        parts = 2 if dtype == torch.float32 else 1
+        rs = cip + (16 // sz if (cip * sz // 16) % 2 == 0 else 0)
+        hs = bs + 2
+        ps = 2 if bs == 8 else 1
+        nbuf = 2 * ps + 2
+        ys = 2 if nbuf * hs * hs * rs * sz > TC_SMEM_MAX else 1
+        rows = bs // ys
+        xp = 4 if bs == 16 else 8
+        threads = ps * rows * bs
+        ring = nbuf * (rows + 2) * hs * rs * sz
+        grid = (bs // xp, ys)
+        wg = ks * sz == 32 and cop >= TC_WGMMA_MIN_N[dtype]
+        mma = "wgmma" if wg else "mma.sync"
+        kc, kb = cip // ks, 3 * parts * ks * cop * sz
+        cta = threads + 32  # and the producer warp
+        keep = min(_tc_fit(ring, cta), 2)
+        wb = packed_bytes(ci, co, dtype)
+        if (ring + wb + 8 <= TC_SMEM_MAX
+                and _tc_fit(ring + wb + 8, cta) >= keep):
+            return TcPlan(xp, rows, threads, ring + wb + 8, grid, ps, 1,
+                          _tc_kmax(kc, kb), mma, grid[0] * grid[1])
+        kg = _tc_kmax(kc, kb)
+        while kg > 1 and not _tc_keep_slots(ring, kg * kb, 9 * kc // kg, cta,
+                                            keep):
+            kg //= 2
+        if not _tc_keep_slots(ring, kg * kb, 9 * kc // kg, cta, keep):
+            kg = _tc_kmax(kc, kb)  # no step keeps them: fewer CTAs per SM
+        sb, nstep = kg * kb, 9 * kc // kg
+        ns = (_tc_keep_slots(ring, sb, nstep, cta, keep)
+              or _tc_keep_slots(ring, sb, nstep, cta, 1))
+        return TcPlan(xp, rows, threads, ring + ns * (sb + 16), grid, ps,
+                      ns, kg, mma, grid[0] * grid[1] * xp // ps)
 
 
 def _tc_dims(ci: int, co: int, dtype) -> tuple:
@@ -877,32 +881,34 @@ def wgrad_plan(ci: int, co: int, x_dtype, compute_dtype,
     `wgrad_tf32_smem` within `wgrad_tf32_smem_max`.  The rest runs on the
     CUDA cores: at most WGRAD_ACC_MAX accumulators per thread and a ring
     of 4 staged x planes and two dy planes within WGRAD_SMEM_MAX."""
-    bs = bs or B.BS
-    sx, sg = x_dtype.itemsize, compute_dtype.itemsize
-    tiles = [(cot, cit) for cot in (64, 32, 16, 8, 4, 2, 1) if cot <= co
-             for cit in (64, 32, 16, 8, 4, 2, 1) if cit <= ci]
-    if ci >= mma_min_ci and (sg == 2 or co >= tf32_min_co):
-        if sg == 4:
-            tiles = [(cot, cit) for cot, cit in tiles if min(cot, cit) >= 8]
-        for cot, cit in tiles:
-            if sg == 2:
-                smem = wgrad_mma_smem(bs, cit, cot)
-                fits = (wgrad_mma_acc(cit, cot) <= WGRAD_ACC_MAX
-                        and smem <= WGRAD_SMEM_MMA)
-            else:
-                smem = wgrad_tf32_smem(bs, cit, cot, sx)
-                fits = (wgrad_tf32_acc(cit, cot) <= WGRAD_ACC_MAX
-                        and smem <= wgrad_tf32_smem_max(bs))
-            if fits:
-                splits = (ci // cit) * (co // cot)
-                return WgradPlan(cit, cot, 0, 0, 0, 0, splits,
-                                 max(8, _WG_CTAS // splits), smem, True)
-    else:
-        for cot, cit in tiles:
-            p = _wgrad_plan_for(ci, co, sx, sg, bs, cit, cot)
-            if p.tm * p.tn <= WGRAD_ACC_MAX and p.smem <= WGRAD_SMEM_MAX:
-                return p
-    raise NotImplementedError(f"no conv3_wgrad plan for ci={ci} co={co}")
+    with span("pcgc.conv3.plan"):  # a cache miss: one plan search
+        bs = bs or B.BS
+        sx, sg = x_dtype.itemsize, compute_dtype.itemsize
+        tiles = [(cot, cit) for cot in (64, 32, 16, 8, 4, 2, 1) if cot <= co
+                 for cit in (64, 32, 16, 8, 4, 2, 1) if cit <= ci]
+        if ci >= mma_min_ci and (sg == 2 or co >= tf32_min_co):
+            if sg == 4:
+                tiles = [(cot, cit) for cot, cit in tiles
+                         if min(cot, cit) >= 8]
+            for cot, cit in tiles:
+                if sg == 2:
+                    smem = wgrad_mma_smem(bs, cit, cot)
+                    fits = (wgrad_mma_acc(cit, cot) <= WGRAD_ACC_MAX
+                            and smem <= WGRAD_SMEM_MMA)
+                else:
+                    smem = wgrad_tf32_smem(bs, cit, cot, sx)
+                    fits = (wgrad_tf32_acc(cit, cot) <= WGRAD_ACC_MAX
+                            and smem <= wgrad_tf32_smem_max(bs))
+                if fits:
+                    splits = (ci // cit) * (co // cot)
+                    return WgradPlan(cit, cot, 0, 0, 0, 0, splits,
+                                     max(8, _WG_CTAS // splits), smem, True)
+        else:
+            for cot, cit in tiles:
+                p = _wgrad_plan_for(ci, co, sx, sg, bs, cit, cot)
+                if p.tm * p.tn <= WGRAD_ACC_MAX and p.smem <= WGRAD_SMEM_MAX:
+                    return p
+        raise NotImplementedError(f"no conv3_wgrad plan for ci={ci} co={co}")
 
 
 def _wgrad_inputs(bg: B.BlockGrid, dy: torch.Tensor, nbrs: torch.Tensor,

@@ -51,6 +51,7 @@ from pcgcv2_torch.config import BlockPlan, ModelConfig, TrainConfig
 from pcgcv2_torch.data.voxelize import collate
 from pcgcv2_torch.models.layers import forget_casts
 from pcgcv2_torch.models.pcc import PCCModel
+from pcgcv2_torch.obs import span
 from pcgcv2_torch.ops.blocks import resolve_device
 from pcgcv2_torch.train.loss import cls_metrics, rd_loss
 
@@ -324,20 +325,22 @@ class Trainer:
         line), each collated to the one plan, stacked and copied to the
         device at once: (coords [n, capacity, 4], valid [n, capacity]), or
         None if none fits."""
-        kept = []
-        for coords_list in batches:
-            total = sum(len(c) for c in coords_list)
-            if total > self.capacity:
-                self.logger.info(
-                    f"skip oversized batch ({total} > {self.capacity})")
-                continue
-            kept.append(collate(coords_list, capacity=self.capacity))
-        if not kept:
-            return None
-        coords = np.stack([c for c, _ in kept])
-        valid = np.stack([v for _, v in kept])
-        return (torch.from_numpy(coords).to(self.device),
-                torch.from_numpy(valid).to(self.device))
+        with span("pcgc.train.collate"):
+            kept = []
+            for coords_list in batches:
+                total = sum(len(c) for c in coords_list)
+                if total > self.capacity:
+                    self.logger.info(
+                        f"skip oversized batch ({total} > {self.capacity})")
+                    continue
+                kept.append(collate(coords_list, capacity=self.capacity))
+            if not kept:
+                return None
+            coords = np.stack([c for c, _ in kept])
+            valid = np.stack([v for _, v in kept])
+        with span("pcgc.train.upload"):
+            return (torch.from_numpy(coords).to(self.device),
+                    torch.from_numpy(valid).to(self.device))
 
     def _record_rows(self, rows: np.ndarray, first: int) -> None:
         """Record the packed per-step rows [bce, bpp, (n_drop,) bces...,
@@ -378,8 +381,12 @@ class Trainer:
         (`_capture`) and every later batch replays the graph, its row
         copied out on the device; on the CPU every call runs eagerly."""
         if mode == "loop":
-            rows = [fn(c, v) for c, v in zip(coords_all, valid_all)]
-            return torch.stack(rows).cpu().numpy()
+            rows = []
+            for c, v in zip(coords_all, valid_all):
+                with span("pcgc.train.step"):
+                    rows.append(fn(c, v))
+            with span("pcgc.train.fetch"):
+                return torch.stack(rows).cpu().numpy()
         n = len(coords_all)
         static = (torch.empty_like(coords_all[0]),
                   torch.empty_like(valid_all[0]))
@@ -391,31 +398,41 @@ class Trainer:
         if self.device.type != "cuda":
             rows = []
             for i in range(n):
-                load(i)
-                rows.append(fn(*static))
-            return torch.stack(rows).cpu().numpy()
+                with span("pcgc.train.step"):
+                    load(i)
+                    rows.append(fn(*static))
+            with span("pcgc.train.fetch"):
+                return torch.stack(rows).cpu().numpy()
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
+        with span("pcgc.train.first_step"), torch.cuda.stream(side):
             load(0)
             first = fn(*static)
             rows = first.new_empty((n, first.numel()))
             rows[0] = first
         main.wait_stream(side)
         if n == 1:
-            return rows.cpu().numpy()
+            with span("pcgc.train.fetch"):
+                return rows.cpu().numpy()
+        graph = row = None
         try:
-            graph, row = self._capture(fn, static, side)
+            with span("pcgc.train.capture"):
+                graph, row = self._capture(fn, static, side)
             for i in range(1, n):
-                load(i)
-                graph.replay()
-                self.graph_replays += 1
-                rows[i] = row
-            return rows.cpu().numpy()
+                with span("pcgc.train.replay"):
+                    load(i)
+                    graph.replay()
+                    self.graph_replays += 1
+                    rows[i] = row
+            with span("pcgc.train.fetch"):
+                return rows.cpu().numpy()
         finally:
-            # the casts cached at capture live in the graph's memory
-            forget_casts(self.model)
+            # the casts cached at capture live in the graph's memory,
+            # which goes with the graph here, at the end of every call
+            with span("pcgc.train.release"):
+                forget_casts(self.model)
+                del graph, row
 
     def _capture(self, fn, static, stream):
         """fn(*static) captured as one CUDA graph on `stream`: (the graph,
@@ -445,29 +462,32 @@ class Trainer:
         replays one captured CUDA graph per step on the card (`_run`);
         with no mode, `_pick_mode` chooses from the kept batches."""
         self._check_mode(mode)
-        self.logger.info("=" * 40 + f"\nTraining Epoch: {self.epoch}")
-        if self.epoch > 0 and self.epoch % self.config.lr_halve_every == 0:
-            self.lr = max(self.lr / 2, self.config.lr_min)
-        stacked = self._stacked(batches)
-        if stacked is None:
+        with span("pcgc.train.call"):
+            self.logger.info("=" * 40 + f"\nTraining Epoch: {self.epoch}")
+            if self.epoch > 0 and self.epoch % self.config.lr_halve_every == 0:
+                self.lr = max(self.lr / 2, self.config.lr_min)
+            stacked = self._stacked(batches)
+            if stacked is None:
+                self.epoch += 1
+                return
+            if self.config.reset_optimizer_each_epoch:
+                reset_optimizer(self.optimizer)
+            set_lr(self.optimizer, self.lr)
+            rows = self._run(self._train_row, *stacked,
+                             self._pick_mode(mode, len(stacked[0])))
+            with span("pcgc.train.record"):
+                for n_drop in rows[:, 2]:
+                    if n_drop:
+                        self.logger.warning(
+                            f"step dropped {int(n_drop)} occupied blocks "
+                            f"(plan {self.plan} too small for this batch) — "
+                            f"this step trained on corrupted geometry; raise "
+                            f"the BlockPlan capacities")
+                self._record_rows(rows, first=3)
+                self.record("Train", self.epoch * 10000 + len(rows))
+            with span("pcgc.train.save_model"):
+                self.save_model()
             self.epoch += 1
-            return
-        if self.config.reset_optimizer_each_epoch:
-            reset_optimizer(self.optimizer)
-        set_lr(self.optimizer, self.lr)
-        rows = self._run(self._train_row, *stacked,
-                         self._pick_mode(mode, len(stacked[0])))
-        for n_drop in rows[:, 2]:
-            if n_drop:
-                self.logger.warning(
-                    f"step dropped {int(n_drop)} occupied blocks "
-                    f"(plan {self.plan} too small for this batch) — "
-                    f"this step trained on corrupted geometry; raise the "
-                    f"BlockPlan capacities")
-        self._record_rows(rows, first=3)
-        self.record("Train", self.epoch * 10000 + len(rows))
-        self.save_model()
-        self.epoch += 1
 
     def test_scanned(self, batches: Sequence[Sequence[np.ndarray]],
                      tag: str = "Test", mode: Optional[str] = None):
