@@ -29,12 +29,12 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pcgcv2_torch.checkpoint import params_from_jax
 from pcgcv2_torch.codec import gpcc, native, octree
 from pcgcv2_torch.config import BlockPlan, ModelConfig
 from pcgcv2_torch.data import io as pcio
-from pcgcv2_torch.data.voxelize import unique_rows
 from pcgcv2_torch.models.entropy import pmf_host
 from pcgcv2_torch.obs import span
 from pcgcv2_torch.ops import blocks as B
@@ -77,6 +77,37 @@ def block_counts(coords: np.ndarray) -> Tuple[int, int, int, int]:
         ks = ((x >> s) << 42) | ((y >> s) << 21) | (z >> s)
         counts.append(len(np.unique(ks)))
     return tuple(counts)
+
+
+def _row_key(xyz: torch.Tensor) -> torch.Tensor:
+    """[N, 3] int rows -> int64 (x << 42) | (y << 21) | z (coordinates
+    non-negative and < 2^21): ascending keys are rows sorted by (x, y, z)."""
+    c = xyz.long()
+    return (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
+
+
+def device_block_counts(xyz: torch.Tensor, res: int) -> torch.Tensor:
+    """int64 [4] occupied-block counts at strides (1, 2, 4, 8) of [N, 3]
+    unique rows inside [0, res)^3, on their device and without a fetch:
+    `block_counts` of the same rows, with the block grid sized from `res`
+    (which holds every row) instead of a fetched max.  A dense occupancy
+    pyramid when the grid is small (<= 256^3), else a sort per scale."""
+    c = xyz.long() >> (int(B.BS).bit_length() - 1)
+    g8 = -(-B.grid_dim(res) // 8) * 8
+    if g8 <= 256:
+        key = (c[:, 0] * g8 + c[:, 1]) * g8 + c[:, 2]
+        occ = B._occupancy(g8 ** 3, key, ((c >= 0) & (c < g8)).all(dim=1))
+        counts, h = [occ.sum()], g8
+        for _ in range(3):
+            h //= 2
+            occ = occ.view(h, 2, h, 2, h, 2).amax(dim=(1, 3, 5))
+            counts.append(occ.sum())
+        return torch.stack(counts)
+    counts = []
+    for s in range(4):
+        k = torch.sort(_row_key(c >> s)).values
+        counts.append((k[1:] != k[:-1]).sum() + min(len(k), 1))
+    return torch.stack(counts)
 
 
 class FeatureCoder:
@@ -192,6 +223,8 @@ class Coder:
         self.coordinate_coder = CoordinateCoder(filename, prefer_gpcc)
         self.feature_coder = FeatureCoder(filename, self._pmf)
         self.params = params
+        self._staging = None  # int32 host buffer of the encode's upload
+        self.intake_dedups = 0  # frames the encode had to sort-unique
 
     @property
     def params(self):
@@ -225,24 +258,58 @@ class Coder:
         rows[:, 1:] = xyz
         return torch.from_numpy(rows).to(self.device)
 
+    def _upload(self, coords) -> torch.Tensor:
+        """[N, 3] host coords -> int32 [N, 3] on the device, as given: one
+        copy through a staging buffer (pinned for a card) that grows
+        geometrically with the frames.  Input of another int dtype or
+        layout is converted in the same pass that fills the buffer."""
+        c = np.asarray(coords)
+        if self._staging is None or self._staging.numel() < c.size:
+            old = 0 if self._staging is None else self._staging.numel()
+            self._staging = torch.empty(
+                max(c.size, 2 * old), dtype=torch.int32,
+                pin_memory=self.device.type == "cuda")
+        host = self._staging[:c.size].view(-1, 3)
+        host.numpy()[:] = c
+        # the caller fetches from this stream before the next frame
+        # writes the buffer again
+        return host.to(self.device, non_blocking=True)
+
+    def _intake(self, coords):
+        """One frame's [N, 3] host coords -> (int32 [n, 4] rows (batch 0,
+        x, y, z) sorted-unique on the device, valid [n], the four block
+        counts): `_rows(unique_rows(coords))` and `block_counts` of the
+        same rows, from one upload and two small fetches."""
+        with span("pcgc.encode.upload"):
+            xyz = self._upload(coords)
+        with span("pcgc.encode.unique_rows"):
+            key = _row_key(xyz)
+            if not bool((key[1:] > key[:-1]).all()):
+                with span("pcgc.encode.dedup"):
+                    self.intake_dedups += 1
+                    ku = torch.unique(key)
+                    xyz = torch.stack([ku >> 42, (ku >> 21) & 0x1FFFFF,
+                                       ku & 0x1FFFFF], dim=1).int()
+            rows = F.pad(xyz, (1, 0))
+            valid = torch.ones(len(rows), dtype=torch.bool,
+                               device=self.device)
+        with span("pcgc.encode.block_counts"):
+            counts = tuple(device_block_counts(xyz, self.res).tolist())
+        return rows, valid, counts
+
     # --- public API ---------------------------------------------------------
 
     @torch.inference_mode()
     def encode(self, coords: np.ndarray, postfix: str = ""):
-        """coords: [N, 3] int voxel coordinates of one frame.
+        """coords: [N, 3] int voxel coordinates of one frame, in any order
+        and with repeats.
 
         Returns (bottleneck coords [ny, 3] stride-normalized, rounded
         features [ny, C]) in canonical order."""
         with span("pcgc.encode"):
-            with span("pcgc.encode.unique_rows"):
-                coords = unique_rows(coords)
-            n = len(coords)
-            with span("pcgc.encode.block_counts"):
-                counts = block_counts(coords)
-                plan = self._plan_from_counts(counts)
-            with span("pcgc.encode.upload"):
-                rows = self._rows(coords)
-                valid = torch.ones(n, dtype=torch.bool, device=self.device)
+            rows, valid, counts = self._intake(coords)
+            n = len(rows)
+            plan = self._plan_from_counts(counts)
             with span("pcgc.encode.network"):
                 y, nums, n_in = self.model.encode_fn(rows, valid, plan)
             with span("pcgc.encode.fetch"):

@@ -82,6 +82,23 @@ def test_bitstream_files_equal(ctx):
         assert tb == jb, ext
 
 
+def test_shuffled_duplicated_frame_same_files(ctx):
+    """The device intake sorts and dedups a frame in any order, with
+    repeats, into the bitstream of the frame itself, byte for byte."""
+    tc, cloud = ctx["tc"], ctx["cloud"]
+    rng = np.random.default_rng(5)
+    frame = np.concatenate([cloud, cloud[rng.integers(0, len(cloud), 100)]])
+    frame = frame[rng.permutation(len(frame))]
+    before = tc.intake_dedups
+    tc.encode(frame, postfix="_shuffled")
+    assert tc.intake_dedups - before == 1
+    for ext in ("_C.bin", "_F.bin", "_H.bin", "_num_points.bin"):
+        with open(tc.filename + ext, "rb") as f:
+            want = f.read()
+        with open(tc.filename + "_shuffled" + ext, "rb") as f:
+            assert f.read() == want, ext
+
+
 def _sorted(pts):
     return pts[np.lexsort((pts[:, 2], pts[:, 1], pts[:, 0]))]
 

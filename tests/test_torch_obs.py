@@ -11,6 +11,7 @@ import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -110,10 +111,19 @@ STREAMED = DEC + _tree(
                                 n=2)
 
 
-@pytest.mark.parametrize("call", ["encode", "decode", "streamed"])
+# a frame that is not sorted-unique: the intake's dedup runs, once
+UNSORTED = ENC + _tree("pcgc.encode.unique_rows", "pcgc.encode.dedup")
+
+
+@pytest.mark.parametrize("call", ["encode", "decode", "streamed",
+                                  "encode_unsorted"])
 def test_codec_spans(coders, call, tmp_path):
+    cloud = coders["cloud"]
+    unsorted = np.concatenate([cloud[::-1], cloud[:5]])
     fn, expected = {
-        "encode": (lambda: coders["mono"].encode(coders["cloud"]), ENC),
+        "encode": (lambda: coders["mono"].encode(cloud), ENC),
+        "encode_unsorted": (lambda: coders["mono"].encode(unsorted),
+                            UNSORTED),
         "decode": (coders["mono"].decode, DEC),
         "streamed": (coders["streamed"].decode, STREAMED)}[call]
     _check_tree(_spans(fn, tmp_path), expected)
